@@ -13,7 +13,8 @@ setup(
         "MCAQ-YOLO on TPU: morphological complexity-aware quantization for "
         "YOLO, JAX/Flax/Pallas-native (arXiv:2511.12976)"
     ),
-    packages=find_packages(include=["mcaq_yolo_tpu", "mcaq_yolo_tpu.*"]),
+    packages=find_packages(include=["mcaq_yolo_tpu", "mcaq_yolo_tpu.*",
+                                    "mcaq_yolo_tpu_torch", "mcaq_yolo_tpu_torch.*"]),
     py_modules=["bench"],
     python_requires=">=3.10",
     install_requires=[
