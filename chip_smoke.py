@@ -11,7 +11,11 @@ Phases (any failure exits non-zero and prints no result):
   2. each kernel against its plain PyTorch version on the card, at the
      shapes of the main path (yolov8n at 640 px, bs=32: P3 80x80x64, P4
      40x40x128, P5 20x20x256) in float32 and bfloat16, with and without the
-     soft mask, plus one non-multiple tile shape — bitwise equality;
+     soft mask, plus a non-multiple tile shape, yolov8m's P3 (C=192: 24
+     groups of 8 channels, not a power of two), P3 at bs=256, and edge
+     inputs (constant channels, subnormal and huge x, a frozen range that
+     x overflows, bit maps on the rint ties 1.5 .. 8.5) — bitwise
+     equality, one launch counted per call;
   3. the deployed program: a seeded random MCAQ-YOLOv8n (nc=80, MLP bit
      mapper, softplus) written as a flax msgpack checkpoint + meta, served
      by `Predictor(model_path)` at 640 px in bfloat16 (pool 256, conf 0.25,
@@ -20,8 +24,9 @@ Phases (any failure exits non-zero and prints no result):
      one forward with quant_backend='torch' must give bitwise-equal raw
      maps;
   4. timings with CUDA events (median of 21): the device time of the
-     kernel, its plain version and the per-channel min/max pass, and the
-     kernel's bound, per scale at bs=32 bf16 (8 launches back to back on
+     kernel and of its plain version (with the soft mask and without), the
+     per-channel min/max pass, the kernel's bound and its launch's waves
+     over the SMs, per scale at bs=32 bf16 (8 launches back to back on
      distinct copies of the input, a working set larger than L2, queued
      behind a device sleep so the host's enqueue time is not counted),
      plus the kernel's host-paced time and host time per call; the
@@ -36,7 +41,6 @@ Without a CUDA device, or outside the repository, it exits 2.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -46,15 +50,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "mcaq_yolo_tpu_torch/csrc/spatial_quant.cu"
 REPLACES = "mcaq_yolo_tpu/ops/pallas_quant.py:247"
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
-# per element: divide, add, rint, 2 clamps, subtract, multiply, mask multiply
-QUANT_OPS_PER_ELEMENT = 8
 SCALES = (("P3", 80, 64, 10), ("P4", 40, 128, 10), ("P5", 20, 256, 5))
-COPIES = 8
-# ~10 ms at the H100's clocks: longer than the host needs to queue one
-# timed round of launches
-SLEEP_CYCLES = 20_000_000
 IMG = 640
 
 
@@ -69,67 +65,6 @@ def emit(obj) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
-
-
-def cuda_ms(fn, reps: int = 21, inner: int = 1, warmup: int = 3,
-            device_only: bool = False, quartiles: bool = False):
-    """Median over `reps` of the time per call of fn(k), k = 0 .. inner-1
-    called back to back between two CUDA events; with `quartiles`, the
-    (25th, 50th, 75th) percentiles instead.
-
-    device_only: the calls are queued behind a device-side sleep issued
-    before the first event, so the card runs them without waiting on the
-    host between launches and the events measure device time alone.
-    Otherwise the host's enqueue time counts, as it does for a caller."""
-    import torch
-
-    for _ in range(warmup):
-        for k in range(inner):
-            fn(k)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if device_only:
-            torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        for k in range(inner):
-            fn(k)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    if quartiles:
-        return tuple(statistics.quantiles(times, n=4))
-    return statistics.median(times)
-
-
-def host_us_per_call(fn, calls: int = 64) -> float:
-    """Host time per call of fn(k) (enqueue only, no synchronise), in µs."""
-    import torch
-
-    torch.cuda.synchronize()
-    torch.cuda._sleep(SLEEP_CYCLES)  # keep the queue from filling meanwhile
-    t0 = time.perf_counter()
-    for k in range(calls):
-        fn(k % COPIES)
-    dt = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return dt / calls * 1e6
-
-
-def quant_bytes(x, bit_map, mask) -> int:
-    """Bytes the fused quantizer must move: x read once, output written
-    once, bit map, per-channel range and mask read once."""
-    C = x.shape[-1]
-    n = 2 * x.numel() * x.element_size() + bit_map.numel() * 4 + 2 * C * 4
-    return n + (mask.numel() * 4 if mask is not None else 0)
-
-
-def quant_bound_ms(x, bit_map, mask) -> float:
-    t_bytes = quant_bytes(x, bit_map, mask) / HBM_BYTES_PER_S
-    t_ops = x.numel() * QUANT_OPS_PER_ELEMENT / FP32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -168,38 +103,100 @@ def phase_environment():
 # ---------------------------------------------------------------------------
 
 
+def quant_cases(device):
+    """Phase 2's inputs, made one case at a time from seeds: (name, tiles,
+    make) with make() -> (x float32 (B, H, W, C), bit map (B, Ht, Wt), mask
+    (B, H, W), (x_min, x_max) or None to take the range from x)."""
+    import torch
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    def normal(shape, seed, scale=1.0):
+        return torch.randn(shape, generator=gen(seed), device=device) * scale
+
+    def uniform(shape, seed, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=gen(seed), device=device) * (hi - lo) + lo
+
+    def case(B, H, C, t, seed, x=None, bits=None, rng=None):
+        def make():
+            xx = normal((B, H, H, C), seed) if x is None else x(B, H, C, seed)
+            # continuous bit maps exercise the in-kernel round and clip
+            bb = uniform((B, t, t), seed + 1, 1.5, 8.5) if bits is None else bits(B, t, seed)
+            return xx, bb, uniform((B, H, H), seed + 2), rng(C) if rng else None
+        return (B, H, H, C), (t, t), make
+
+    def constant_channels(B, H, C, seed):
+        xx = normal((B, H, H, C), seed)
+        xx[..., :4] = torch.tensor([0.75, -3.0, 0.0, 1e-30], device=device)
+        return xx  # range 0 on those channels: clamped to 1e-8
+
+    def tiny(B, H, C, seed):
+        xx = normal((B, H, H, C), seed, 1e-39)  # subnormal in f32 and bf16
+        xx[0, 0, 0, : C // 2] = 1.0  # half the channels get a normal range
+        return xx
+
+    def ties(B, t, seed):
+        k = torch.randint(1, 9, (B, t, t), generator=gen(seed), device=device)
+        return k.float() + 0.5  # 1.5 .. 8.5: rint rounds half to even
+
+    def narrow(C):  # a frozen calibration range far inside x's
+        return (torch.full((C,), -0.01, device=device), torch.full((C,), 0.01, device=device))
+
+    cases = [(name, *case(32, h, c, t, seed=10 * i)) for i, (name, h, c, t) in enumerate(SCALES)]
+    cases += [
+        ("non-multiple", *case(4, 12, 24, 5, seed=40)),
+        ("constant-channel", *case(4, 40, 128, 10, seed=50, x=constant_channels)),
+        ("tiny-subnormal", *case(4, 20, 256, 5, seed=60, x=tiny)),
+        ("large", *case(4, 40, 128, 10, seed=70,
+                        x=lambda B, H, C, s: normal((B, H, H, C), s, 1e36))),
+        ("overflowing-quotient", *case(4, 20, 256, 5, seed=80, rng=narrow,
+                                       x=lambda B, H, C, s: normal((B, H, H, C), s, 1e37))),
+        ("bit-ties", *case(4, 80, 64, 10, seed=90, bits=ties)),
+        ("yolov8m-P3", *case(32, 80, 192, 10, seed=100)),  # C/8 = 24 groups
+        ("bs256-P3", *case(256, 80, 64, 10, seed=110)),
+    ]
+    return cases
+
+
 def phase_kernel_vs_plain(device) -> float:
     import torch
 
     from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
 
-    g = torch.Generator(device=device).manual_seed(0)
-    cases = [(name, 32, h, h, c, t, t) for name, h, c, t in SCALES]
-    cases.append(("non-multiple", 4, 12, 12, 24, 5, 5))
     worst = 0.0
-    for name, B, H, W, C, Ht, Wt in cases:
+    n_cases = 0
+    for name, shape, tiles, make in quant_cases(device):
+        x32, bits, mask_in, rng = make()
         for dtype in (torch.float32, torch.bfloat16):
-            for with_mask in (False, True):
-                x = torch.randn((B, H, W, C), generator=g, device=device).to(dtype)
-                # continuous bit maps exercise the in-kernel round and clip
-                bits = torch.rand((B, Ht, Wt), generator=g, device=device) * 7.0 + 1.5
-                lo, hi = torch.aminmax(x.reshape(-1, C), dim=0)
+            x = x32.to(dtype)
+            if rng is None:
+                lo, hi = torch.aminmax(x.reshape(-1, x.shape[-1]), dim=0)
                 lo, hi = lo.float().contiguous(), hi.float().contiguous()
-                mask = (torch.rand((B, H, W), generator=g, device=device)
-                        if with_mask else None)
+            else:
+                lo, hi = rng
+            for mask in (None, mask_in):
+                before = sq.spatial_quantize.launches
                 a = sq.spatial_quantize(x, bits, lo, hi, mask)
                 b = sq.spatial_quantize_torch(x, bits, lo, hi, mask)
                 torch.cuda.synchronize()
+                check(sq.spatial_quantize.launches == before + 1,
+                      "one spatial_quantize call must count one launch")
                 ibits = torch.int16 if dtype == torch.bfloat16 else torch.int32
                 mism = int((a.view(ibits) != b.view(ibits)).sum())
                 err = float((a.float() - b.float()).abs().max())
+                finite = bool(torch.isfinite(a).all())
                 worst = max(worst, err)
+                n_cases += 1
                 emit({"phase": "kernel_vs_plain", "kernel": "spatial_quant", "case": name,
-                      "shape": [B, H, W, C], "tiles": [Ht, Wt], "dtype": str(dtype),
-                      "mask": with_mask, "mismatches": mism, "max_abs_err": err,
-                      "tolerance": "bitwise"})
-                check(mism == 0, f"spatial_quant differs from its plain version: {name} "
-                                 f"{dtype} mask={with_mask}: {mism} elements")
+                      "shape": list(shape), "tiles": list(tiles), "dtype": str(dtype),
+                      "mask": mask is not None, "mismatches": mism, "max_abs_err": err,
+                      "finite": finite, "tolerance": "bitwise"})
+                check(mism == 0 and finite,
+                      f"spatial_quant differs from its plain version: {name} {dtype} "
+                      f"mask={mask is not None}: {mism} elements (finite: {finite})")
+        del x32, bits, mask_in, x, a, b
+    emit({"phase": "kernel_vs_plain", "cases": n_cases, "all_bitwise": True})
     return worst
 
 
@@ -355,11 +352,15 @@ def phase_timings(pred, device, dtype):
 
     from mcaq_yolo_tpu_torch.models.yolo import images_to_nchw
     from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
+    from mcaq_yolo_tpu_torch.utils.cuda_timing import (
+        COPIES, cuda_ms, host_us_per_call, quant_bound_ms, quant_bytes)
 
     torch.backends.cudnn.deterministic = False
     model = pred.model
     rng = np.random.default_rng(2)
     x32 = torch.from_numpy(rng.integers(0, 256, (32, IMG, IMG, 3), dtype=np.uint8)).to(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm = sq.blocks_per_sm(dtype)
 
     rows = []
     with torch.inference_mode():
@@ -377,6 +378,7 @@ def phase_timings(pred, device, dtype):
             def kernel(k):
                 return sq.spatial_quantize(xs[k], bit_map, lo, hi, ms_[k])
 
+            geo = sq.launch_geometry(*xf.shape, xf.element_size())
             row = {
                 "phase": "kernel_timing", "kernel": "spatial_quant", "scale": name,
                 "shape": list(xf.shape), "dtype": str(dtype), "mask": True,
@@ -388,14 +390,23 @@ def phase_timings(pred, device, dtype):
                 "minmax_ms": cuda_ms(lambda k: q._batch_minmax(xs[k]), inner=COPIES,
                                      device_only=True),
                 "bound_ms": quant_bound_ms(xf, bit_map, mask), "bound_by": "bytes",
+                "unmasked_ms": cuda_ms(lambda k: sq.spatial_quantize(xs[k], bit_map, lo, hi),
+                                       inner=COPIES, device_only=True),
+                "unmasked_bound_ms": quant_bound_ms(xf, bit_map, None),
+                "unmasked_plain_ms": cuda_ms(
+                    lambda k: sq.spatial_quantize_torch(xs[k], bit_map, lo, hi),
+                    inner=COPIES, device_only=True),
                 "ms_host_paced": cuda_ms(kernel, inner=COPIES),
                 "host_us_per_call": host_us_per_call(kernel),
+                "blocks": geo.blocks, "pix_per_block": geo.pix_per_block,
+                "blocks_per_sm": per_sm, "waves": geo.blocks / (sms * per_sm),
                 "timing": f"device time of {COPIES} back-to-back launches on distinct "
                           "inputs queued behind a device sleep, median of 21; "
                           "ms_host_paced: the same without the sleep",
             }
             row["achieved_GBps"] = row["bytes"] / (row["ms"] * 1e-3) / 1e9
             row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["unmasked_bound_share"] = row["unmasked_bound_ms"] / row["unmasked_ms"]
             rows.append(row)
             emit(row)
             del xs, ms_

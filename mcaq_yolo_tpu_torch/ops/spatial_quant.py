@@ -19,7 +19,8 @@ x is (B, H, W, C) NHWC-contiguous, float32 or bfloat16; bit_map (B, Ht, Wt)
 float32; x_min / x_max (C,) float32; mask (B, H, W) or (B, H, W, 1)
 float32.  The kernel moves 16 bytes of channels per thread, so on CUDA C is
 a multiple of 4 (float32) or 8 (bfloat16) and x is 16-byte aligned, as every
-YOLOv8 variant's C3/C4/C5 map is; it raises otherwise.  Math in float32,
+YOLOv8 variant's C3/C4/C5 map is, and pixel indices fit 32 bits (B*H*W,
+H*Ht, W*Wt < 2^31); it raises otherwise.  Math in float32,
 output in x's dtype.  Tile of pixel (h, w) is
 (floor(h * Ht / H), floor(w * Wt / W)) — the reference model path's rule;
 the Pallas kernel clamps remainder pixels into the last tile instead, and
@@ -29,7 +30,8 @@ the two agree on exact tile multiples.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -38,13 +40,60 @@ from ..core import image_ops as iops
 MIN_BITS, MAX_BITS = 2, 8
 N_BITS = MAX_BITS - MIN_BITS + 1
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SMEM = 48 * 1024  # static shared-memory budget of one block
+# the kernel's block: THREADS threads (kThreads in csrc/spatial_quant.cu),
+# taking SPAN 16-byte groups per pass, 3 per thread (kSpan)
+THREADS = 128
+SPAN = THREADS * 3
+_INT32_LIMIT = 2 ** 31
+
+
+class Geometry(NamedTuple):
+    """The kernel's launch geometry for one map shape and dtype."""
+    vec: int            # channels per 16-byte group (4 float32, 8 bfloat16)
+    groups: int         # 16-byte groups per pixel, G = C / vec
+    pix_per_block: int  # pixels per block: a contiguous run of x and of the output
+    blocks: int         # ceil(B * H * W / pix_per_block)
+    magic: int          # group j of a block lies in pixel (j * magic) >> shift
+    shift: int          # of the block's run
+
+
+def div_magic(d: int, bound: int):
+    """(magic, shift) with (j * magic) >> shift == j // d for 0 <= j < bound,
+    magic < 2^32: magic 1 and shift log2(d) when d is a power of two.
+
+    With magic = ceil(2^s / d) and e = magic * d - 2^s (0 <= e < d),
+    j * magic / 2^s = j / d + j * e / (d * 2^s), which floors to j // d
+    whenever (bound - 1) * e < 2^s; the smallest such s is taken."""
+    if d < 1 or bound < 1:
+        raise ValueError(f"div_magic: d={d}, bound={bound}")
+    for s in range(64):
+        m = -(-(1 << s) // d)
+        e = m * d - (1 << s)
+        if m < 2 ** 32 and (bound - 1) * e < (1 << s):
+            return m, s
+    raise ValueError(f"div_magic: no 32-bit multiplier for d={d}, bound={bound}")
+
+
+@functools.lru_cache(maxsize=256)
+def launch_geometry(B: int, H: int, W: int, C: int, elem_size: int) -> Geometry:
+    """Launch geometry of the kernel for a (B, H, W, C) map of `elem_size`
+    bytes per element: each block owns the run of whole pixels whose 16-byte
+    groups fit one pass of SPAN groups (one pixel when a pixel alone has
+    more; the block then takes it in several passes)."""
+    vec = 16 // elem_size
+    if C % vec:
+        raise ValueError(f"launch_geometry: C={C} is not a multiple of {vec}")
+    groups = C // vec
+    ppb = max(1, SPAN // groups)
+    magic, shift = div_magic(groups, ppb * groups)
+    return Geometry(vec, groups, ppb, -(-(B * H * W) // ppb), magic, shift)
 
 
 def precompute_qparams(x_min: torch.Tensor, x_max: torch.Tensor):
     """Per-(bit, channel) tables (scale, inv_scale, zp), each (7, C) float32
-    — the table the kernel builds in shared memory (reference
-    `pallas_quant.py:92-101`)."""
+    (reference `pallas_quant.py:92-101`); row i is bit width i + 2.  The
+    kernel's table kernel writes (scale, zp) with these formulas, and its
+    quantize kernel gathers them by each pixel's bit width."""
     half = torch.tensor([2.0 ** (b - 1) for b in range(MIN_BITS, MAX_BITS + 1)],
                         dtype=torch.float32, device=x_min.device)[:, None]
     qmin = -half
@@ -79,6 +128,7 @@ def spatial_quantize_torch(x: torch.Tensor, bit_map: torch.Tensor,
 
 
 def _check(x, bit_map, x_min, x_max, mask):
+    """Refuse what the kernel does not take; return (B, H, W, C, Ht, Wt)."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"spatial_quantize: x must be float32 or bfloat16, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
@@ -94,20 +144,25 @@ def _check(x, bit_map, x_min, x_max, mask):
             raise ValueError(f"spatial_quantize: mask must be (B, H, W[, 1]), got "
                              f"{tuple(mask.shape)}")
         named.append(("mask", mask))
+    dev = x.device
     for name, t in named:
-        if t.device != x.device:
-            raise ValueError(f"spatial_quantize: {name} on {t.device}, x on {x.device}")
+        if t.device != dev:
+            raise ValueError(f"spatial_quantize: {name} on {t.device}, x on {dev}")
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"spatial_quantize: {name} must be contiguous float32")
     if x_min.shape != (C,) or x_max.shape != (C,):
         raise ValueError(f"spatial_quantize: x_min/x_max must be ({C},)")
-    if 2 * N_BITS * C * 4 > _MAX_SMEM:
-        raise ValueError(f"spatial_quantize: C={C} exceeds the kernel's table budget")
+    _, Ht, Wt = bit_map.shape
+    if max(B * H * W, H * Ht, W * Wt, N_BITS * C) >= _INT32_LIMIT:
+        raise ValueError("spatial_quantize: the kernel indexes pixels and tiles in 32 bits; "
+                         f"B*H*W={B * H * W}, H*Ht={H * Ht}, W*Wt={W * Wt} must stay "
+                         "below 2^31")
     vec = 16 // x.element_size()
     if C % vec or x.data_ptr() % 16:
         raise ValueError(f"spatial_quantize: the kernel moves 16 bytes ({vec} channels) "
                          f"per thread; C={C} must be a multiple of {vec} and x 16-byte "
                          "aligned")
+    return B, H, W, C, Ht, Wt
 
 
 def _kernel():
@@ -117,13 +172,28 @@ def _kernel():
         from .build import load_library
 
         fn = load_library("spatial_quant").mcaq_spatial_quant
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                       + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _kernel_fn = fn
     return _kernel_fn
 
 
 _kernel_fn = None
+
+
+def blocks_per_sm(dtype: torch.dtype) -> int:
+    """Blocks of the quantize kernel resident on one SM at once (CUDA's
+    occupancy calculator), for counting a launch's waves.  Needs CUDA."""
+    from .build import load_library
+
+    fn = load_library("spatial_quant").mcaq_spatial_quant_blocks_per_sm
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    n = fn(_DTYPE_CODE[dtype])
+    if n < 1:
+        raise RuntimeError("spatial_quant: the occupancy query failed")
+    return n
 
 
 def spatial_quantize(x: torch.Tensor, bit_map: torch.Tensor, x_min: torch.Tensor,
@@ -135,16 +205,32 @@ def spatial_quantize(x: torch.Tensor, bit_map: torch.Tensor, x_min: torch.Tensor
         return spatial_quantize_torch(x, bit_map, x_min, x_max, mask)
     if x.device.type != "cuda":
         raise ValueError(f"spatial_quantize: unsupported device {x.device}")
-    _check(x, bit_map, x_min, x_max, mask)
+    B, H, W, C, Ht, Wt = _check(x, bit_map, x_min, x_max, mask)
     fn = _kernel()
-    B, H, W, C = x.shape
-    _, Ht, Wt = bit_map.shape
+    geo = launch_geometry(B, H, W, C, x.element_size())
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), bit_map.data_ptr(), x_min.data_ptr(), x_max.data_ptr(),
-                mask.data_ptr() if mask is not None else None, out.data_ptr(),
-                _DTYPE_CODE[x.dtype], B, H, W, C, Ht, Wt, stream)
+    # the raw handle of the current stream (torch.cuda.current_stream() costs
+    # several µs per call); the launch needs x's device to be current
+    index = x.device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    # scratch for the per-(bit, channel) scale and zero-point table that the
+    # kernel's first launch writes, from the caching allocator without a
+    # tensor around it (a few µs less per call than torch.empty): freed on
+    # return, handed out again only to work queued after this call on the
+    # stream
+    table = torch.cuda.caching_allocator_alloc(2 * N_BITS * C * 4, index, stream)
+    try:
+        args = (x.data_ptr(), bit_map.data_ptr(), x_min.data_ptr(), x_max.data_ptr(),
+                mask.data_ptr() if mask is not None else None, table, out.data_ptr(),
+                _DTYPE_CODE[x.dtype], B, H, W, C, Ht, Wt, geo.pix_per_block, geo.magic,
+                geo.shift, stream)
+        if index == torch._C._cuda_getDevice():
+            rc = fn(*args)
+        else:
+            with torch.cuda.device(index):
+                rc = fn(*args)
+    finally:
+        torch.cuda.caching_allocator_delete(table)
     if rc != 0:
         raise RuntimeError(f"spatial_quant kernel launch failed: CUDA error {rc}")
     spatial_quantize.launches += 1

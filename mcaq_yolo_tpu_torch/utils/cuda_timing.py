@@ -1,0 +1,83 @@
+"""
+Device timing with CUDA events, and the spatial quantizer's bound.
+
+Shared by `chip_smoke.py` and `ops/spatial_quant_ab.py`, so that both read
+a kernel the same way.  Every function here needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import statistics
+import time
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
+# per element: divide, add, rint, 2 clamps, subtract, multiply, mask multiply
+QUANT_OPS_PER_ELEMENT = 8
+# distinct copies of a kernel's inputs cycled in one timed round: at the
+# yolov8n scales their working set exceeds the 50 MB L2
+COPIES = 8
+# ~10 ms at the H100's clocks: longer than the host needs to queue one
+# timed round of launches
+SLEEP_CYCLES = 20_000_000
+
+
+def cuda_ms(fn, reps: int = 21, inner: int = 1, warmup: int = 3,
+            device_only: bool = False, quartiles: bool = False):
+    """Median over `reps` of the time per call of fn(k), k = 0 .. inner-1
+    called back to back between two CUDA events; with `quartiles`, the
+    (25th, 50th, 75th) percentiles instead.
+
+    device_only: the calls are queued behind a device-side sleep issued
+    before the first event, so the card runs them without waiting on the
+    host between launches and the events measure device time alone.
+    Otherwise the host's enqueue time counts, as it does for a caller."""
+    for _ in range(warmup):
+        for k in range(inner):
+            fn(k)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for k in range(inner):
+            fn(k)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    if quartiles:
+        return tuple(statistics.quantiles(times, n=4))
+    return statistics.median(times)
+
+
+def host_us_per_call(fn, calls: int = 64) -> float:
+    """Host time per call of fn(k) (enqueue only, no synchronise), in µs."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)  # keep the queue from filling meanwhile
+    t0 = time.perf_counter()
+    for k in range(calls):
+        fn(k % COPIES)
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def quant_bytes(x, bit_map, mask) -> int:
+    """Bytes the fused quantizer must move: x read once, output written
+    once, bit map, per-channel range and mask read once."""
+    C = x.shape[-1]
+    n = 2 * x.numel() * x.element_size() + bit_map.numel() * 4 + 2 * C * 4
+    return n + (mask.numel() * 4 if mask is not None else 0)
+
+
+def quant_bound_ms(x, bit_map, mask) -> float:
+    """The least time the card could take for one quantize: the larger of
+    its bytes over the HBM rate and its f32 operations over the f32 rate."""
+    t_bytes = quant_bytes(x, bit_map, mask) / HBM_BYTES_PER_S
+    t_ops = x.numel() * QUANT_OPS_PER_ELEMENT / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3
