@@ -31,7 +31,22 @@ Phases (any failure exits non-zero and prints no result):
      behind a device sleep so the host's enqueue time is not counted),
      plus the kernel's host-paced time and host time per call; the
      deployed program's images/s at bs=32 and bs=256 (host included, as a
-     caller sees it); the morphology stage's share of a forward.
+     caller sees it); the morphology stage's share of a forward;
+  5. training: a seeded float32 YOLOv8n teacher written as a flax msgpack;
+     `Trainer` (bf16 convolutions with float32 weights, KD on) over three
+     one-batch epochs at 640 px, nc 80, bs 16, on seeded synthetic batches
+     (128 box slots, 5-30 boxes per image): Stage 1 (no quantization,
+     temperature 10), then Stage 3 (fractional compose).  Checked: finite
+     losses, nonzero gradients reaching backbone, complexity MLP, bit mapper
+     and all three soft masks, two EMA steps per quantizer, avg_bits in
+     [2, 8], no kernel launch in training.  Then `calibrate` over 2 batches
+     (3 launches each) and freeze; `save_checkpoint`; `Predictor` serves 8
+     images from it (3 launches) and phase 3's kernel-versus-plain raw-map
+     check repeats on the trained model.  The train step's wall ms and
+     images/s, its split into student forward / teacher / loss / backward /
+     optimizer (CUDA events), peak memory and the device's idle share over two steps
+     (torch.profiler); one float32 step at 128 px, bs 2, on the card and
+     on the CPU from the same weights and batch (TF32 off), compared.
 
 Output: JSON lines; before the last, the `{"kernels": [...]}` summary; the
 last line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -324,9 +339,17 @@ def phase_deployed_program(device, dtype, workdir: Path):
           "detections": sum(len(r["detections"]) for r in results),
           "pool_saturations": pred.pool_saturations})
 
-    # the kernel path against the plain path through the whole network
-    stack = np.stack([pred.preprocess(im)[0] for im in images[:8]])
-    x = torch.from_numpy(stack).to(device)
+    backend_parity(pred, images[:8], device, "backend_parity")
+    return pred, launches
+
+
+def backend_parity(pred, images, device, phase: str) -> None:
+    """One forward through the kernel and one through its plain version on
+    the same letterboxed images: the raw maps must be bitwise equal."""
+    import numpy as np
+    import torch
+
+    x = torch.from_numpy(np.stack([pred.preprocess(im)[0] for im in images])).to(device)
     with torch.inference_mode():
         raw_k, _ = pred.model(x)
         pred.model.set_quant_backend("torch")
@@ -335,10 +358,10 @@ def phase_deployed_program(device, dtype, workdir: Path):
     same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                for a, b in zip(raw_k, raw_p))
     finite = all(bool(torch.isfinite(a).all()) for a in raw_k)
-    emit({"phase": "backend_parity", "raw_maps_bitwise_equal": same, "finite": finite,
+    emit({"phase": phase, "raw_maps_bitwise_equal": same, "finite": finite,
           "shapes": [list(a.shape) for a in raw_k]})
-    check(same and finite, "raw maps differ between quant_backend 'auto' and 'torch'")
-    return pred, launches
+    check(same and finite, f"{phase}: raw maps differ between quant_backend 'auto' and "
+                           "'torch'")
 
 
 # ---------------------------------------------------------------------------
@@ -444,6 +467,251 @@ def phase_timings(pred, device, dtype):
     return rows, throughput
 
 
+# ---------------------------------------------------------------------------
+# Phase 5
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 16
+TRAIN_GROUPS = ("backbone", "complexity_analyzer", "bit_mapper", "quantizer_p3",
+                "quantizer_p4", "quantizer_p5")
+LOSS_KEYS = ("loss_total", "loss_det", "box_loss", "cls_loss", "dfl_loss", "loss_bit",
+             "loss_smooth", "loss_kd", "loss_reg")
+
+
+def _grad_groups(model, scale: float = 1.0):
+    """Per top-level group, the flattened gradient (times `scale`)."""
+    import torch
+
+    flat = {}
+    for name, p in model.named_parameters():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        flat.setdefault(name.split(".")[0], []).append(
+            g.detach().float().cpu().reshape(-1) * scale)
+    return {k: torch.cat(v) for k, v in flat.items()}
+
+
+def phase_training(device, workdir: Path, img: int = IMG, batch: int = TRAIN_BATCH):
+    """Train (bf16, KD from a seeded float32 teacher), calibrate, save, and
+    serve the trained checkpoint through the kernel."""
+    import numpy as np
+    import torch
+
+    from mcaq_yolo_tpu_torch.calibrate import calibrate
+    from mcaq_yolo_tpu_torch.data.synthetic import synthetic_batches
+    from mcaq_yolo_tpu_torch.inference import Predictor
+    from mcaq_yolo_tpu_torch.models.weights_io import to_jax_variables
+    from mcaq_yolo_tpu_torch.models.yolo import YOLOv8
+    from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
+    from mcaq_yolo_tpu_torch.train import Trainer
+    from mcaq_yolo_tpu_torch.utils.checkpoint import write_msgpack
+
+    tpath = workdir / "teacher.msgpack"
+    tpath.write_bytes(write_msgpack(to_jax_variables(
+        YOLOv8("yolov8n", 80, device="cpu", seed=1))))
+    config = {
+        "epochs": 3, "batch_size": batch, "learning_rate": 1e-3, "seed": 0,
+        "output_dir": str(workdir / "train"),
+        "model": {"name": "yolov8n", "num_classes": 80, "teacher_path": str(tpath)},
+        "data": {"img_size": img, "max_boxes": 128}, "morphology": {"downsample": 2},
+        "quantization": {"bit_mapping": "mlp", "monotone_param": "softplus"},
+        # epoch 0: Stage 1 (no quantization, temperature 10); 1-2: Stage 3
+        "curriculum": {"warmup_epochs": 0, "transition_epochs": 0},
+        "scheduler": {"warmup_epochs": 1}, "distillation": {"enabled": True},
+        "training": {"amp": True},
+    }
+    batches = synthetic_batches(1, batch, img, 80, max_boxes=128, boxes_per_image=(5, 30),
+                                seed=3)
+    trainer = Trainer(config, batches, device=device)
+    check(trainer.amp_dtype == torch.bfloat16 or device.type != "cuda", "amp not bf16")
+
+    sq.spatial_quantize.launches = 0
+    t0 = time.perf_counter()
+    epochs = [trainer.train_epoch(e) for e in range(3)]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = sq.spatial_quantize.launches
+    grads = _grad_groups(trainer.model)
+    grad_norms = {k: float(v.norm()) for k, v in grads.items()}
+    num_batches = [int(q.num_batches) for q in trainer.model.quantizers]
+    emit({"phase": "training", "img_size": img, "batch": batch, "num_classes": 80,
+          "dtype": "bfloat16 convolutions, float32 weights" if trainer.amp_dtype else "float32",
+          "teacher": "float32", "wall_s": round(train_s, 3),
+          "epochs": [{k: (round(v, 6) if isinstance(v, float) else v) for k, v in e.items()}
+                     for e in epochs],
+          "grad_norms_last_step": grad_norms, "quantizer_num_batches": num_batches,
+          "launches": {"spatial_quant": train_launches}})
+    check([int(e["stage"]) for e in epochs] == [1, 3, 3], "curriculum stages are not 1, 3, 3")
+    check(epochs[0]["temperature"] == 10.0 and [e["quantize"] for e in epochs] == [0, 1, 1],
+          "Stage 1 must run at temperature 10 without quantization")
+    for e in epochs:
+        check(all(np.isfinite(e[k]) for k in LOSS_KEYS), f"non-finite loss: {e}")
+        check(2.0 <= e["avg_bits"] <= 8.0, f"avg_bits {e['avg_bits']} outside [2, 8]")
+    for k in TRAIN_GROUPS:
+        check(grad_norms.get(k, 0.0) > 0.0, f"no gradient reached {k}")
+    check(num_batches == [2, 2, 2], f"quantizer EMA steps {num_batches}, expected 2 each")
+    check(train_launches == 0, "the training forward ran the eval kernel")
+
+    calib = synthetic_batches(2, batch, img, 80, seed=4)
+    sq.spatial_quantize.launches = 0
+    calibrate(trainer.model, calib, num_images=2 * batch)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    calib_launches = sq.spatial_quantize.launches
+    stats = [(int(q.num_batches), bool(q.frozen)) for q in trainer.model.quantizers]
+    emit({"phase": "calibration", "batches": 2, "quantizer_state": stats,
+          "launches": {"spatial_quant": calib_launches}})
+    check(stats == [(4, True)] * 3, f"calibration state {stats}")
+    check(calib_launches == 3 * 2, f"spatial_quant launched {calib_launches} times in "
+                                   "2 calibration forwards (expected 3 each)")
+
+    path = trainer.save_checkpoint("trained.ckpt", 2)
+    pred = Predictor(str(path), conf_threshold=0.25, iou_threshold=0.45, max_det=300,
+                     dtype=torch.bfloat16, device=device)
+    check(all(bool(q.frozen) for q in pred.model.quantizers), "frozen stats not served")
+    images = serving_images(seed=5, count=1)
+    sq.spatial_quantize.launches = 0
+    results = pred.predict_batch(images, batch_size=8)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    serve_launches = sq.spatial_quantize.launches
+    emit({"phase": "trained_serving", "images": len(results), "batch_size": 8,
+          "avg_bits": round(results[0]["avg_bits"], 4),
+          "detections": sum(len(r["detections"]) for r in results),
+          "launches": {"spatial_quant": serve_launches}})
+    for r in results:
+        check(2.0 <= r["avg_bits"] <= 8.0 and np.isfinite(r["complexity_map"]).all(),
+              "trained model served a bad result")
+        for d in r["detections"]:
+            check(np.isfinite(d["bbox"]).all(), "non-finite detection")
+    check(serve_launches == 3, f"spatial_quant launched {serve_launches} times in one "
+                               "forward of the trained model (expected 3)")
+    backend_parity(pred, images, device, "trained_backend_parity")
+    return trainer, {"training": train_launches, "calibration": calib_launches,
+                     "trained_serving": serve_launches}
+
+
+def phase_train_timing(trainer, device, reps: int = 5):
+    """The bs=16 bf16 KD train step: wall ms (host clock around a
+    synchronised step, median of `reps`), its split into the student's
+    forward, the teacher's, the loss with the assigner, backward and
+    optimizer (CUDA events between the phases), peak memory, and the
+    device's idle share over two steps (torch.profiler: union of kernel
+    intervals against the host's wall time, profiled and unprofiled)."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = trainer._to_device(trainer.train_loader[0])
+    e = 2
+    w = trainer.curriculum.get_loss_weights(e)
+    args = (trainer.curriculum.get_effective_temperature(e), trainer.curriculum.get_target_bits(e),
+            w["bit_budget"], w["smoothness"], w["distillation"], w["regularization"])
+
+    def step(mark=None):
+        return trainer.train_step(trainer.optimizer, batch, *args, quantize=True, use_kd=True,
+                                  mark=mark)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    walls, splits = [], []
+    for _ in range(reps):
+        events = [("start", torch.cuda.Event(enable_timing=True))]
+        events[0][1].record()
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((name, ev))
+
+        t0 = time.perf_counter()
+        step(mark)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        splits.append({b[0]: a[1].elapsed_time(b[1]) for a, b in zip(events, events[1:])})
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    split = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        prof_wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    by_name = {}
+    for ev in sorted(kernels, key=lambda ev: ev.time_range.start):
+        s_, e_ = ev.time_range.start, ev.time_range.end
+        busy_us += max(0.0, e_ - max(s_, end))
+        end = max(end, e_)
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + (e_ - s_)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    ms = statistics.median(walls)
+    row = {"phase": "train_step_timing", "batch": TRAIN_BATCH, "img_size": IMG,
+           "dtype": "bfloat16 convolutions, float32 weights; float32 teacher; TF32 off",
+           "ms_per_step": ms, "ms_min": min(walls), "ms_max": max(walls),
+           "images_per_s": TRAIN_BATCH / (ms * 1e-3),
+           "split_ms": split, "split_sum_ms": sum(split.values()),
+           "peak_mem_GB": peak_gb,
+           "profiled_steps": 2, "profiled_wall_ms": prof_wall_us / 1e3,
+           "kernel_events": len(kernels),
+           "device_busy_ms": busy_us / 1e3 if kernels else None,
+           "idle_share": (1.0 - busy_us / prof_wall_us) if kernels else None,
+           # the profiler slows the host, not the kernels: the busy time per
+           # step against the unprofiled step's wall time
+           "idle_share_unprofiled_step": (1.0 - busy_us / 2e3 / ms) if kernels else None,
+           "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top],
+           "timing": "wall: host clock around a synchronised step, median of "
+                     f"{reps}; split: CUDA events between phases, median"}
+    emit(row)
+    return row
+
+
+def phase_step_cuda_vs_cpu(device, img: int = 128, batch: int = 2):
+    """One float32 train step (Stage 3, KD) at `img` px on the card and on
+    the CPU from the same seeded weights and batch, TF32 off: loss terms
+    within 1e-3 relative, each group's gradient within 1e-2 relative L2."""
+    import torch
+
+    from mcaq_yolo_tpu_torch.data.synthetic import synthetic_batches
+    from mcaq_yolo_tpu_torch.models.losses import MCAQYOLOLoss
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+    from mcaq_yolo_tpu_torch.models.yolo import YOLOv8
+    from mcaq_yolo_tpu_torch.train import Optimizer, make_train_step
+
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 must be off for the CUDA-versus-CPU step")
+    data = synthetic_batches(1, batch, img, 80, max_boxes=128, boxes_per_image=(5, 30),
+                             seed=6)[0]
+    runs = {}
+    for dev in (torch.device("cpu"), device):
+        model = MCAQYOLO(num_classes=80, morph_downsample=2, device=dev, seed=0)
+        teacher = YOLOv8("yolov8n", 80, device=dev, seed=1)
+        step = make_train_step(model, MCAQYOLOLoss(80, 4.0), teacher)
+        opt = Optimizer(model, lambda s: 0.0)  # lr 0: the weights stay
+        m = step(opt, {k: torch.from_numpy(v).to(dev) for k, v in data.items()}, 1.0, 4.0,
+                 0.05, 0.1, 0.5, 1e-4, quantize=True, use_kd=True)
+        # the step clipped the gradients to norm 1; scale them back
+        runs[dev.type] = ({k: float(m[k]) for k in LOSS_KEYS},
+                          _grad_groups(model, max(float(m["grad_norm"]), 1.0)))
+    (l_cpu, g_cpu), (l_dev, g_dev) = runs["cpu"], runs[device.type]
+    loss_rel = {k: abs(l_dev[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12) for k in LOSS_KEYS}
+    grad_rel = {k: float((g_dev[k] - g.float()).norm() / g.norm()) for k, g in g_cpu.items()
+                if float(g.norm()) > 0}
+    emit({"phase": "step_cuda_vs_cpu", "img_size": img, "batch": batch, "dtype": "float32",
+          "tf32": False, "loss_rel_err": loss_rel, "grad_rel_l2_err": grad_rel,
+          "tolerance": "loss terms 1e-3 relative; gradient per group 1e-2 relative L2"})
+    check(set(grad_rel) == set(g_cpu), "a group got no gradient on the CPU")
+    check(max(loss_rel.values()) <= 1e-3, f"loss terms differ: {loss_rel}")
+    check(max(grad_rel.values()) <= 1e-2, f"gradients differ: {grad_rel}")
+
+
 def main() -> int:
     try:
         import torch
@@ -467,7 +735,12 @@ def main() -> int:
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         pred, launches = phase_deployed_program(device, dtype, Path(tmp))
-    rows, _ = phase_timings(pred, device, dtype)
+        rows, _ = phase_timings(pred, device, dtype)
+        del pred
+        trainer, path_launches = phase_training(device, Path(tmp))
+        phase_train_timing(trainer, device)
+        del trainer
+    phase_step_cuda_vs_cpu(device)
 
     emit({"kernels": [{
         "name": "spatial_quant", "route": "cuda", "source": KERNEL_SOURCE,
@@ -475,6 +748,7 @@ def main() -> int:
         "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
         "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
         "library_ms": None,
+        "launches_by_path": dict(deployed=launches, **path_launches),
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

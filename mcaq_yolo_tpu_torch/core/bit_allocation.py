@@ -1,6 +1,6 @@
 """
-Bit allocation — complexity -> per-tile bit width (paper Eq.13-18), eval
-path (port of `mcaq_yolo_tpu/core/bit_allocation.py:28-278`).
+Bit allocation — complexity -> per-tile bit width (paper Eq.13-18) (port
+of `mcaq_yolo_tpu/core/bit_allocation.py:28-308`).
 
   * `ComplexityToBitMappingNetwork` — z0 = [C, C^2, log1p(C)] ->
     32 -> 64 -> 32 -> 1 with BatchNorm, sigmoid scaled to [bmin, bmax],
@@ -10,6 +10,12 @@ path (port of `mcaq_yolo_tpu/core/bit_allocation.py:28-278`).
     (|W| projected during training) and ReLU.
   * `LinearBitMapper` — parameter-free percentile-normalized mapping.
   * `ConstantBitMapper` — uniform bits (matched-budget control).
+  * `enforce_monotonic_params` — the Eq.18 |W| projection after each
+    optimizer step; `get_bit_statistics` — mean, std, range and the
+    integer-bit histogram of a bit map.
+
+Every mapper takes `training`: the MLP's BatchNorm then uses the batch's
+statistics and updates its running ones (flax momentum 0.9).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import initializers as init
+from ..batch_norm import BatchNorm1d
 from .ste import ste_clamp, ste_round
 
 
@@ -77,7 +84,9 @@ class LinearBitMapper(nn.Module):
         super().__init__()
         self.min_bits, self.max_bits, self.eps_spread = min_bits, max_bits, eps_spread
 
-    def forward(self, complexity, temperature=None, return_continuous=False):
+    def forward(self, complexity, temperature=None, return_continuous=False,
+                training=False):
+        del training  # parameter-free; no BatchNorm
         return linear_bit_map(complexity, float(self.min_bits), float(self.max_bits),
                               temperature, return_continuous, self.eps_spread)
 
@@ -87,8 +96,9 @@ class ConstantBitMapper(nn.Module):
         super().__init__()
         self.bits, self.min_bits, self.max_bits = bits, min_bits, max_bits
 
-    def forward(self, complexity, temperature=None, return_continuous=False):
-        del temperature
+    def forward(self, complexity, temperature=None, return_continuous=False,
+                training=False):
+        del temperature, training
         b = float(min(max(self.bits, self.min_bits), self.max_bits))
         if not return_continuous:
             b = round(b)
@@ -120,8 +130,9 @@ class MonotoneDense(nn.Module):
 
 
 class ComplexityToBitMappingNetwork(nn.Module):
-    """Learnable complexity -> bits MLP (Eq.13-17), eval path: BatchNorm
-    uses its running statistics."""
+    """Learnable complexity -> bits MLP (Eq.13-17).  BatchNorm uses its
+    running statistics, or with `training` the batch's over the N = B*Ht*Wt
+    tiles (and updates the running ones)."""
 
     def __init__(self, min_bits: int = 2, max_bits: int = 8,
                  hidden_dims=(32, 64, 32), monotone_param: str = "softplus"):
@@ -137,7 +148,7 @@ class ComplexityToBitMappingNetwork(nn.Module):
             self.add_module(f"{self._dense_name}_{i}", layer)
         for i, d in enumerate(hidden_dims):
             # flax BatchNorm(momentum=0.9), eps 1e-5
-            self.add_module(f"BatchNorm_{i}", nn.BatchNorm1d(d, eps=1e-5, momentum=0.1))
+            self.add_module(f"BatchNorm_{i}", BatchNorm1d(d, eps=1e-5, momentum=0.1))
         self.n_hidden = len(hidden_dims)
 
     @property
@@ -156,15 +167,49 @@ class ComplexityToBitMappingNetwork(nn.Module):
         for i in range(self.n_hidden):
             getattr(self, f"BatchNorm_{i}").reset_parameters()
 
-    def forward(self, complexity, temperature=None, return_continuous=False):
+    def forward(self, complexity, temperature=None, return_continuous=False,
+                training=False):
         c = torch.clamp(normalize_complexity_shape(complexity), 0.0, 1.0)
         B, H, W = c.shape
         z = c.reshape(-1, 1)
         h = torch.cat([z, z ** 2, torch.log1p(z)], dim=-1)
         for i in range(self.n_hidden):
-            h = getattr(self, f"BatchNorm_{i}")(self._dense(i)(h))
+            h = getattr(self, f"BatchNorm_{i}")(self._dense(i)(h), training)
             h = F.leaky_relu(h, 0.05) if self.softplus else F.relu(h)
         h = torch.sigmoid(self._dense(self.n_hidden)(h))
         bit_map = (self.min_bits + (self.max_bits - self.min_bits) * h).reshape(B, H, W)
         return _finalize_bit_map(bit_map, float(self.min_bits), float(self.max_bits),
                                  temperature, return_continuous)
+
+
+@torch.no_grad()
+def enforce_monotonic_params(mapper: nn.Module) -> nn.Module:
+    """Eq.(18) |W| re-projection of the bit mapper, in place, after every
+    optimizer step: the absolute value of every Dense kernel and BatchNorm
+    scale (the reference matches the leaf names 'kernel' and 'scale').
+    MonotoneDense's `theta` and all biases are left alone."""
+    for m in mapper.modules():
+        if isinstance(m, (nn.Linear, nn.BatchNorm1d)):
+            m.weight.abs_()
+    return mapper
+
+
+def bit_histogram(bit_map: torch.Tensor, min_bits: int = 2, max_bits: int = 8) -> torch.Tensor:
+    """int32 counts of each integer bit width min_bits..max_bits, after
+    rounding and clipping; stays on the device."""
+    b = torch.clamp(torch.round(bit_map.detach()), min_bits, max_bits).to(torch.int64)
+    hist = torch.zeros(int(max_bits - min_bits + 1), dtype=torch.int32, device=b.device)
+    return hist.index_add_(0, (b - min_bits).reshape(-1),
+                           torch.ones(b.numel(), dtype=torch.int32, device=b.device))
+
+
+def get_bit_statistics(bit_map: torch.Tensor, min_bits: int = 2, max_bits: int = 8) -> dict:
+    """Mean, std (population), min, max and the integer-bit histogram of a
+    bit map."""
+    return {
+        "mean": bit_map.mean(),
+        "std": bit_map.std(correction=0),
+        "min": bit_map.min(),
+        "max": bit_map.max(),
+        "histogram": bit_histogram(bit_map, min_bits, max_bits),
+    }

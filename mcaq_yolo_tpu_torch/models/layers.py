@@ -5,6 +5,10 @@ Tensors are NCHW in torch.channels_last memory, so the channel axis is the
 contiguous one, as in the reference's NHWC.  Submodule names follow the
 reference's flax scope names (ConvBnSiLU_0, Conv_0, BatchNorm_0, ...) so
 that `weights_io` maps the flax variable tree one to one.
+
+Every forward takes `training` (default False), as the reference's modules
+do: BatchNorm then normalizes with the batch's statistics and updates its
+running ones by flax's rule (`batch_norm.py`).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import initializers as init
+from ..batch_norm import BatchNorm2d
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch convention; flax momentum 0.97
@@ -23,13 +28,14 @@ class ConvBnSiLU(nn.Module):
     """Conv2d (symmetric k//2 padding, no bias) + BatchNorm(eps 1e-3) + SiLU.
 
     The convolution runs in its weight's dtype (bfloat16 on the deployed
-    path); BatchNorm keeps float32 statistics and affine parameters."""
+    path) or in autocast's (bfloat16 training with float32 weights);
+    BatchNorm keeps float32 statistics and affine parameters."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int = 1, stride: int = 1,
                  act: bool = True):
         super().__init__()
         self.Conv_0 = nn.Conv2d(c_in, c_out, kernel, stride, kernel // 2, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(c_out, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.BatchNorm_0 = BatchNorm2d(c_out, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
 
     @torch.no_grad()
@@ -37,8 +43,8 @@ class ConvBnSiLU(nn.Module):
         init.lecun_normal_(self.Conv_0.weight, g)
         self.BatchNorm_0.reset_parameters()
 
-    def forward(self, x):
-        x = self.BatchNorm_0(self.Conv_0(x))
+    def forward(self, x, training: bool = False):
+        x = self.BatchNorm_0(self.Conv_0(x), training)
         return F.silu(x) if self.act else x
 
 
@@ -53,8 +59,8 @@ class Bottleneck(nn.Module):
         self.ConvBnSiLU_1 = ConvBnSiLU(hidden, c_out, 3)
         self.add = shortcut and c_in == c_out
 
-    def forward(self, x):
-        y = self.ConvBnSiLU_1(self.ConvBnSiLU_0(x))
+    def forward(self, x, training: bool = False):
+        y = self.ConvBnSiLU_1(self.ConvBnSiLU_0(x, training), training)
         return x + y if self.add else y
 
 
@@ -73,12 +79,12 @@ class C2f(nn.Module):
                             Bottleneck(self.hidden, self.hidden, shortcut, 1.0))
         self.ConvBnSiLU_1 = ConvBnSiLU((2 + n) * self.hidden, c_out, 1)
 
-    def forward(self, x):
-        y = self.ConvBnSiLU_0(x)
+    def forward(self, x, training: bool = False):
+        y = self.ConvBnSiLU_0(x, training)
         parts = [y[:, :self.hidden], y[:, self.hidden:]]
         for i in range(self.n):
-            parts.append(getattr(self, f"Bottleneck_{i}")(parts[-1]))
-        return self.ConvBnSiLU_1(torch.cat(parts, dim=1))
+            parts.append(getattr(self, f"Bottleneck_{i}")(parts[-1], training))
+        return self.ConvBnSiLU_1(torch.cat(parts, dim=1), training)
 
 
 class SPPF(nn.Module):
@@ -92,13 +98,13 @@ class SPPF(nn.Module):
         self.ConvBnSiLU_0 = ConvBnSiLU(c_in, hidden, 1)
         self.ConvBnSiLU_1 = ConvBnSiLU(4 * hidden, c_out, 1)
 
-    def forward(self, x):
+    def forward(self, x, training: bool = False):
         k = self.pool_size
-        y = self.ConvBnSiLU_0(x)
+        y = self.ConvBnSiLU_0(x, training)
         p1 = F.max_pool2d(y, k, 1, k // 2)
         p2 = F.max_pool2d(p1, k, 1, k // 2)
         p3 = F.max_pool2d(p2, k, 1, k // 2)
-        return self.ConvBnSiLU_1(torch.cat([y, p1, p2, p3], dim=1))
+        return self.ConvBnSiLU_1(torch.cat([y, p1, p2, p3], dim=1), training)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

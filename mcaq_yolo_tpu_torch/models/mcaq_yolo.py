@@ -1,15 +1,20 @@
 """
-MCAQ-YOLO assembly, eval path (port of
-`mcaq_yolo_tpu/models/mcaq_yolo.py:36-176`): YOLOv8 with tile-wise
-mixed-precision quantization of the backbone's C3/C4/C5 outputs before
-the neck.  One complexity analyzer and one bit mapper are shared across
-scales; each scale has its own quantizer (own channel count, own soft
-mask).
+MCAQ-YOLO assembly (port of `mcaq_yolo_tpu/models/mcaq_yolo.py:36-171`):
+YOLOv8 with tile-wise mixed-precision quantization of the backbone's
+C3/C4/C5 outputs before the neck.  One complexity analyzer and one bit
+mapper are shared across scales; each scale has its own quantizer (own
+channel count, own soft mask).
+
+`forward(training=True)` is the training forward: BatchNorm on batch
+statistics, continuous bit maps, the quantizers' fractional compose with
+their EMA step, with autograd.  `training=False` is the eval forward
+(integer bits, the CUDA kernel on CUDA), without gradient.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import contextlib
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -42,10 +47,13 @@ class MCAQYOLO(nn.Module):
     'avg_bits' (mean over scales of each scale's tile mean),
     'quantized_features' (per-scale NHWC), 'feature_layers'.
 
-    `dtype` is the network's compute dtype (bfloat16 on the deployed path);
-    the MCAQ math runs in float32 and the quantizer returns the feature's
-    dtype.  `quant_backend`: 'auto' = the CUDA kernel on CUDA tensors and
-    its plain version on the CPU; 'torch' = always the plain version.
+    `dtype` is the network's compute dtype (bfloat16 on the deployed path;
+    the convolution weights are cast once).  For bfloat16 training keep
+    float32 and run the forward under `torch.autocast`: the MCAQ transform
+    turns autocast off, so the MCAQ math always runs in float32, and the
+    quantizer returns the feature's dtype.  `quant_backend`: 'auto' = the
+    CUDA kernel on CUDA tensors and its plain version on the CPU; 'torch' =
+    always the plain version.
     The model is built on `device` (default CUDA; raises without one) with
     a seeded random init, in eval mode."""
 
@@ -103,29 +111,39 @@ class MCAQYOLO(nn.Module):
             q.backend = backend
 
     def mcaq_transform(self, feat: torch.Tensor, scale_idx: int, temperature: float,
-                       quantize: bool):
-        """feat NCHW channels_last -> (feat_q NCHW, complexity, bit_map)."""
-        f = feat.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-        complexity = self.complexity_analyzer(f)
-        if self.normalize_complexity:
-            complexity = percentile_normalize(complexity)
-        bit_map = self.bit_mapper(complexity, temperature)
-        fq = self.quantizers[scale_idx](f, bit_map) if quantize else f
+                       quantize: bool, training: bool = False,
+                       update_stats: Optional[bool] = None):
+        """feat NCHW channels_last -> (feat_q NCHW, complexity, bit_map).
+        Continuous bits with `training`; `quantize=False` (curriculum
+        Stage 1) still runs the analyzer and the mapper."""
+        with torch.autocast(feat.device.type, enabled=False):
+            f = feat.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+            complexity = self.complexity_analyzer(f)
+            if self.normalize_complexity:
+                complexity = percentile_normalize(complexity)
+            bit_map = self.bit_mapper(complexity, temperature, return_continuous=training,
+                                      training=training)
+            fq = f
+            if quantize:
+                fq = self.quantizers[scale_idx](f, bit_map, training=training,
+                                                update_stats=update_stats)
         return fq.permute(0, 3, 1, 2), complexity, bit_map
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor, temperature: float = 1.0, quantize: bool = True,
-                training: bool = False):
-        if training:
-            raise NotImplementedError("the training path is not ported yet")
-        feats = self.backbone(images_to_nchw(x, self.dtype))
-        feats_q, complexity_maps, bit_maps = [], [], []
-        for i, f in enumerate(feats):
-            fq, c, b = self.mcaq_transform(f, i, temperature, quantize)
-            feats_q.append(fq)
-            complexity_maps.append(c)
-            bit_maps.append(b)
-        raw_maps = self.head(self.neck(*feats_q))
+                training: bool = False, update_stats: Optional[bool] = None):
+        """`update_stats` (default: `training`): the quantizers take one EMA
+        step of their running min/max (calibration passes True with
+        training=False).  Without `training` no gradient is recorded."""
+        with contextlib.nullcontext() if training else torch.no_grad():
+            feats = self.backbone(images_to_nchw(x, self.dtype), training)
+            feats_q, complexity_maps, bit_maps = [], [], []
+            for i, f in enumerate(feats):
+                fq, c, b = self.mcaq_transform(f, i, temperature, quantize, training,
+                                               update_stats)
+                feats_q.append(fq)
+                complexity_maps.append(c)
+                bit_maps.append(b)
+            raw_maps = self.head(self.neck(*feats_q, training), training)
         avg_bits = torch.stack([b.to(torch.float32).mean() for b in bit_maps]).mean()
         aux: Dict = {
             "complexity_map": complexity_maps,
@@ -135,3 +153,8 @@ class MCAQYOLO(nn.Module):
             "feature_layers": [4, 6, 9],
         }
         return raw_maps, aux
+
+    def backbone_features(self, x: torch.Tensor, training: bool = False):
+        """Unquantized backbone features (C3, C4, C5), NCHW channels_last:
+        the student-side taps for feature-level distillation."""
+        return self.backbone(images_to_nchw(x, self.dtype), training)

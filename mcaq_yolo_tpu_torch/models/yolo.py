@@ -81,11 +81,12 @@ class YOLOv8Backbone(nn.Module):
         self.C2f_3 = C2f(c(1024), c(1024), _n(3, d), True)
         self.SPPF_0 = SPPF(c(1024), c(1024))
 
-    def forward(self, x):
-        x = self.C2f_0(self.ConvBnSiLU_1(self.ConvBnSiLU_0(x)))
-        c3 = self.C2f_1(self.ConvBnSiLU_2(x))
-        c4 = self.C2f_2(self.ConvBnSiLU_3(c3))
-        c5 = self.SPPF_0(self.C2f_3(self.ConvBnSiLU_4(c4)))
+    def forward(self, x, training: bool = False):
+        t = training
+        x = self.C2f_0(self.ConvBnSiLU_1(self.ConvBnSiLU_0(x, t), t), t)
+        c3 = self.C2f_1(self.ConvBnSiLU_2(x, t), t)
+        c4 = self.C2f_2(self.ConvBnSiLU_3(c3, t), t)
+        c5 = self.SPPF_0(self.C2f_3(self.ConvBnSiLU_4(c4, t), t), t)
         return c3, c4, c5
 
 
@@ -103,11 +104,12 @@ class YOLOv8Neck(nn.Module):
         self.ConvBnSiLU_1 = ConvBnSiLU(c(512), c(512), 3, 2)
         self.C2f_3 = C2f(c(512) + c(1024), c(1024), _n(3, d), False)
 
-    def forward(self, c3, c4, c5):
-        p4 = self.C2f_0(torch.cat([upsample2x(c5), c4], dim=1))
-        p3 = self.C2f_1(torch.cat([upsample2x(p4), c3], dim=1))
-        n4 = self.C2f_2(torch.cat([self.ConvBnSiLU_0(p3), p4], dim=1))
-        n5 = self.C2f_3(torch.cat([self.ConvBnSiLU_1(n4), c5], dim=1))
+    def forward(self, c3, c4, c5, training: bool = False):
+        t = training
+        p4 = self.C2f_0(torch.cat([upsample2x(c5), c4], dim=1), t)
+        p3 = self.C2f_1(torch.cat([upsample2x(p4), c3], dim=1), t)
+        n4 = self.C2f_2(torch.cat([self.ConvBnSiLU_0(p3, t), p4], dim=1), t)
+        n5 = self.C2f_3(torch.cat([self.ConvBnSiLU_1(n4, t), c5], dim=1), t)
         return p3, n4, n5
 
 
@@ -143,12 +145,14 @@ class DetectHead(nn.Module):
             init.lecun_normal_(cls.weight, g)
             cls.bias.fill_(float(-math.log((1.0 - cls_prior) / cls_prior)))
 
-    def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, feats: Sequence[torch.Tensor],
+                training: bool = False) -> List[torch.Tensor]:
+        t = training
         outs = []
         for i, f in enumerate(feats):
-            b = getattr(self, f"box{i}_conv1")(getattr(self, f"box{i}_conv0")(f))
+            b = getattr(self, f"box{i}_conv1")(getattr(self, f"box{i}_conv0")(f, t), t)
             b = getattr(self, f"box{i}_out")(b)
-            c = getattr(self, f"cls{i}_conv1")(getattr(self, f"cls{i}_conv0")(f))
+            c = getattr(self, f"cls{i}_conv1")(getattr(self, f"cls{i}_conv0")(f, t), t)
             c = getattr(self, f"cls{i}_out")(c)
             outs.append(torch.cat([b, c], dim=1).to(torch.float32).permute(0, 2, 3, 1))
         return outs
@@ -174,7 +178,8 @@ def set_network_dtype(*modules: nn.Module, dtype: torch.dtype) -> None:
 
 
 class YOLOv8(nn.Module):
-    """Plain (non-MCAQ) YOLOv8: images (B, H, W, 3) -> raw maps."""
+    """Plain (non-MCAQ) YOLOv8: images (B, H, W, 3) -> raw maps.  The
+    float32 teacher of knowledge distillation and the base ablation arm."""
 
     def __init__(self, variant: str = "yolov8n", num_classes: int = 80,
                  dtype: torch.dtype = torch.float32, device: DeviceLike = None,
@@ -190,9 +195,14 @@ class YOLOv8(nn.Module):
         self.to(device=device, memory_format=torch.channels_last)
         self.eval()
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        c3, c4, c5 = self.backbone(images_to_nchw(x, self.dtype))
-        return self.head(self.neck(c3, c4, c5))
+    def forward(self, x: torch.Tensor, training: bool = False) -> List[torch.Tensor]:
+        c3, c4, c5 = self.features(x, training)
+        return self.head(self.neck(c3, c4, c5, training), training)
+
+    def features(self, x: torch.Tensor, training: bool = False):
+        """Backbone features (C3, C4, C5), NCHW channels_last: the teacher's
+        taps for feature-level distillation."""
+        return self.backbone(images_to_nchw(x, self.dtype), training)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the GPU.
+"""The port's CUDA kernel against its plain PyTorch version, and one train
+step on the card against the same step on the CPU.
 
 Every test here needs a CUDA device and nvcc; without them each skips.
 This file imports neither jax nor the JAX package, so it also runs on a
@@ -138,3 +139,46 @@ def test_kernel_entry_refuses_a_wrong_geometry(cuda):
     assert call(ppb=geo.pix_per_block + 1) == 1  # run wider than one pass
     assert call(magic=geo.magic + 1) == 1        # inexact for some j
     assert call(magic=1, shift=2) == 1           # divides by 4, not 6
+
+
+@pytest.mark.gpu
+def test_train_step_cuda_matches_cpu(cuda):
+    """One float32 train step (Stage 3, KD on) at 128 px, batch 2, on the
+    card and on the CPU from the same seeded weights and batch, TF32 off:
+    loss terms within 1e-3 relative and each top-level group's gradient
+    within 1e-2 relative L2 (convolution rounding moves a few features
+    across a quantization step, as between the port and JAX on the CPU)."""
+    from mcaq_yolo_tpu_torch.data.synthetic import synthetic_batches
+    from mcaq_yolo_tpu_torch.models.losses import MCAQYOLOLoss
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+    from mcaq_yolo_tpu_torch.models.yolo import YOLOv8
+    from mcaq_yolo_tpu_torch.train import Optimizer, make_train_step
+
+    batch = synthetic_batches(1, 2, 128, 4, max_boxes=8, boxes_per_image=(3, 6), seed=0)[0]
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = MCAQYOLO(num_classes=4, morph_downsample=2, device=dev, seed=0)
+            teacher = YOLOv8("yolov8n", 4, device=dev, seed=1)
+            step = make_train_step(model, MCAQYOLOLoss(4, 4.0), teacher)
+            opt = Optimizer(model, lambda s: 0.0)  # lr 0: the weights stay
+            metrics = step(opt, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+                           1.0, 4.0, 0.05, 0.1, 0.5, 1e-4, quantize=True, use_kd=True)
+            unclip = max(float(metrics["grad_norm"]), 1.0)  # the step clipped to norm 1
+            grads = {}
+            for name, p in model.named_parameters():
+                grads.setdefault(name.split(".")[0], []).append(
+                    p.grad.detach().cpu().reshape(-1) * unclip)
+            runs[dev] = ({k: float(v) for k, v in metrics.items() if v.numel() == 1},
+                         {k: torch.cat(v) for k, v in grads.items()})
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = runs["cpu"], runs["cuda"]
+    for k in ("loss_total", "loss_det", "loss_bit", "loss_smooth", "loss_kd", "loss_reg"):
+        assert m_gpu[k] == pytest.approx(m_cpu[k], rel=1e-3), k
+    for group, g in g_cpu.items():
+        assert float(g.norm()) > 0, group
+        err = float((g_gpu[group] - g).norm() / g.norm())
+        assert err <= 1e-2, f"{group}: relative L2 error {err:.3g}"

@@ -26,14 +26,19 @@ _PROBE = textwrap.dedent("""
     loaded = [n for n, m in sys.modules.items()
               if n.split(".")[0] in BLOCKED and m is not None]
     assert not loaded, loaded
+    for name in ("train", "calibrate", "models.losses", "core.curriculum",
+                 "batch_norm", "data.synthetic"):  # the training slice
+        assert "mcaq_yolo_tpu_torch." + name in names, name
 
     import torch
     if not torch.cuda.is_available():
         from mcaq_yolo_tpu_torch.inference import Predictor
         from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
         from mcaq_yolo_tpu_torch.models.yolo import YOLOv8
+        from mcaq_yolo_tpu_torch.train import Trainer
         for build in (lambda: MCAQYOLO(num_classes=4), lambda: YOLOv8(num_classes=4),
-                      lambda: Predictor("no-such.ckpt", warmup=False)):
+                      lambda: Predictor("no-such.ckpt", warmup=False),
+                      lambda: Trainer({"output_dir": "/nonexistent/never-made"}, [])):
             try:
                 build()
             except RuntimeError as e:
@@ -49,7 +54,7 @@ def test_port_imports_without_jax_and_needs_an_explicit_cpu():
                        text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     n = int(r.stdout.split("ISOLATED")[1])
-    assert n >= 15  # every submodule was imported
+    assert n >= 21  # every submodule was imported
 
 
 def test_port_sources_name_no_jax_import():
