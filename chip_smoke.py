@@ -6,8 +6,8 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
   1. environment: the card's name and power limit (nvidia-smi), TF32 off
-     for the parity phases, build every CUDA kernel from csrc/ (nvcc, all
-     sources at once);
+     for the parity phases, build every CUDA kernel (nvcc) and the host
+     letterbox library (g++) from csrc/, all sources at once;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes of the main path (yolov8n at 640 px, bs=32: P3 80x80x64, P4
      40x40x128, P5 20x20x256) in float32 and bfloat16, with and without the
@@ -46,7 +46,29 @@ Phases (any failure exits non-zero and prints no result):
      images/s, its split into student forward / teacher / loss / backward /
      optimizer (CUDA events), peak memory and the device's idle share over two steps
      (torch.profiler); one float32 step at 128 px, bs 2, on the card and
-     on the CPU from the same weights and batch (TF32 off), compared.
+     on the CPU from the same weights and batch (TF32 off), compared;
+  6. training from disk: a v3 synthetic dataset of 128 train and 32 val
+     images at 640 px written under build/, a seeded float32 teacher, then
+     `Trainer(config, device="cuda").train()` from data.train / data.val
+     (yolov8n, nc 80, bs 16, bf16, KD, morphology.downsample 2, curriculum
+     warm-up 1 and transition 2 over 5 epochs: stages 1, 1, 2, 3, 3).
+     Checked: the stages; the epoch-0 tau_t subset smaller than the split
+     (after the warm-up tau_t is 1.0, so later epochs take the whole split);
+     the Eq.(8) scores cached and deterministic; the Stage-2 refit moved
+     feature_weights onto the simplex; finite losses and val_loss every
+     epoch; from Stage 2 finite mAP@0.5 and mAP@[.5:.95] with avg_bits in
+     [2, 8]; spatial_quant launches in evaluate and in the validation loss
+     equal 3 x the quantized eval forwards counted by a forward hook;
+     best.ckpt, last.ckpt and history.json; a fresh Trainer resumed from
+     last.ckpt equal bitwise in every model tensor, AdamW moment and
+     count; Predictor serving best.ckpt with 3 launches and raw maps
+     bitwise equal to the plain path's; one epoch with
+     data.device_pipeline: true with finite losses, its bank bitwise equal
+     to the host loader's clean images and every augmentation firing (HSV
+     changes pixels, the affine moves boxes).  Timed (host clock, card name
+     and power limit beside): dataset write, scoring, each epoch, the host
+     loader and the device pipeline alone, training and evaluate images/s,
+     and the card's idle share over one epoch (torch.profiler).
 
 Output: JSON lines; before the last, the `{"kernels": [...]}` summary; the
 last line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -103,13 +125,14 @@ def phase_environment():
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
     t0 = time.perf_counter()
-    libs = build.build_all()
-    ptxas = [ln.strip() for n in libs for ln in build.build_log(n).splitlines()
+    libs = build.build_all(build.KERNELS + build.HOST_LIBRARIES)  # all compilers at once
+    ptxas = [ln.strip() for n in build.KERNELS for ln in build.build_log(n).splitlines()
              if "registers" in ln or "spill" in ln]
     emit({"phase": "environment", "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "tf32": False,
           "build_s": round(time.perf_counter() - t0, 3),
-          "kernels": sorted(libs), "ptxas": ptxas[:8]})
+          "kernels": list(build.KERNELS), "host_libraries": list(build.HOST_LIBRARIES),
+          "built": sorted(libs), "ptxas": ptxas[:8]})
     return smi.stdout.strip().splitlines()[0]
 
 
@@ -712,6 +735,321 @@ def phase_step_cuda_vs_cpu(device, img: int = 128, batch: int = 2):
     check(max(grad_rel.values()) <= 1e-2, f"gradients differ: {grad_rel}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6
+# ---------------------------------------------------------------------------
+
+DISK_TRAIN, DISK_VAL, DISK_EPOCHS = 128, 32, 5
+
+
+def _device_busy_ms(prof) -> tuple:
+    """(union of the CUDA kernel intervals in ms, kernel event count) of a
+    torch.profiler run."""
+    import torch
+
+    kernels = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    for ev in sorted(kernels, key=lambda ev: ev.time_range.start):
+        s_, e_ = ev.time_range.start, ev.time_range.end
+        busy_us += max(0.0, e_ - max(s_, end))
+        end = max(end, e_)
+    return busy_us / 1e3, len(kernels)
+
+
+def _images_per_s(loader, device, n_batches: int) -> float:
+    """Batches per second of a loader alone (no model), in images/s."""
+    import torch
+
+    t0, n = time.perf_counter(), 0
+    for i, batch in enumerate(loader):
+        img = torch.as_tensor(batch["image"]).to(device)
+        n += img.shape[0]
+        if i + 1 >= n_batches:
+            break
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def _differing_state(a, b) -> list:
+    """Names of the model tensors, AdamW moments and counts that differ
+    bitwise between two trainers."""
+    import torch
+
+    bad = [n for (n, x), (_, y) in zip(a.model.state_dict().items(), b.model.state_dict().items())
+           if not torch.equal(x, y)]
+    for i, (p, q) in enumerate(zip(a.optimizer.params, b.optimizer.params)):
+        sa, sb = a.optimizer.opt.state[p], b.optimizer.opt.state[q]
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            if not torch.equal(sa[k].float(), sb[k].float().to(sa[k].device)):
+                bad.append(f"adamw[{i}].{k}")
+    if a.optimizer.step_count != b.optimizer.step_count:
+        bad.append("step_count")
+    return bad
+
+
+def _evaluate_split(trainer, epoch: int, gpu: str) -> None:
+    """Where `Trainer.evaluate`'s time goes: the val loader, the eval forward
+    + decode + NMS on the card (with the copy of the detections to the host)
+    and the host's mAP matching, each timed alone on the host clock, beside
+    one whole `evaluate` call."""
+    import numpy as np
+    import torch
+
+    from mcaq_yolo_tpu_torch.train import Trainer
+    from mcaq_yolo_tpu_torch.utils.evaluation import (
+        compute_map, compute_map50_95, detections_to_numpy, extract_targets_per_image)
+
+    temp = trainer.curriculum.get_effective_temperature(epoch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = Trainer.evaluate(trainer, epoch)  # unwrapped: not counted as a path's launches
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches = list(trainer.val_loader)
+    load_s = time.perf_counter() - t0
+    predictions, targets = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches:
+        images = torch.as_tensor(batch["image"]).to(trainer.device)
+        b, s, c, v, _ = trainer.eval_step(images, temp, quantize=True)
+        predictions.extend(detections_to_numpy(b, s, c, v))  # copies to the host: synchronises
+        targets.extend(extract_targets_per_image(batch))
+    forward_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    split = (compute_map(predictions, targets, 0.5)["map"],
+             compute_map50_95(predictions, targets)["map50_95"])
+    match_s = time.perf_counter() - t0
+    emit({"phase": "evaluate_split", "gpu": gpu, "epoch": epoch,
+          "images": len(targets), "detections": int(sum(len(p["scores"]) for p in predictions)),
+          "evaluate_s": whole_s, "val_loader_s": load_s, "forward_nms_s": forward_s,
+          "map_matching_s": match_s, "timing": "host clock, each part alone"})
+    check(np.allclose(split, (whole["map50"], whole["map50_95"]), rtol=0, atol=1e-6),
+          f"evaluate's split disagrees with evaluate: {split} vs {whole}")
+
+
+def phase_train_from_disk(device, workdir: Path, gpu: str, img: int = IMG,
+                          batch: int = TRAIN_BATCH):
+    """Train from a YOLO-format dataset on disk through `Trainer(config).train()`:
+    loaders, Eq.(8) scoring, tau_t subsets, the Stage-2 refit, validation
+    loss, mAP `evaluate` (through the kernel from Stage 2 on), best / last
+    checkpoints, resume, serving of best.ckpt, and one epoch through the
+    device-resident pipeline."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcaq_yolo_tpu_torch.data.dataset import DataLoader, YOLODataset, make_synthetic_dataset_v3
+    from mcaq_yolo_tpu_torch.data.device_pipeline import augment_batch
+    from mcaq_yolo_tpu_torch.inference import Predictor
+    from mcaq_yolo_tpu_torch.models.weights_io import to_jax_variables
+    from mcaq_yolo_tpu_torch.models.yolo import YOLOv8
+    from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
+    from mcaq_yolo_tpu_torch.train import Trainer
+    from mcaq_yolo_tpu_torch.utils.checkpoint import write_msgpack
+
+    t0 = time.perf_counter()
+    make_synthetic_dataset_v3(str(workdir / "ds"), n_images=DISK_TRAIN, img_size=img,
+                              n_val=DISK_VAL, seed=7)
+    write_s = time.perf_counter() - t0
+    tpath = workdir / "disk_teacher.msgpack"
+    tpath.write_bytes(write_msgpack(to_jax_variables(YOLOv8("yolov8n", 80, device="cpu",
+                                                            seed=1))))
+    out = workdir / "disk"
+    config = {
+        "epochs": DISK_EPOCHS, "batch_size": batch, "learning_rate": 1e-3, "seed": 0,
+        "output_dir": str(out),
+        "model": {"name": "yolov8n", "num_classes": 80, "teacher_path": str(tpath)},
+        "data": {"train": str(workdir / "ds" / "images" / "train"),
+                 "val": str(workdir / "ds" / "images" / "val"),
+                 "img_size": img, "max_boxes": 128, "num_workers": 2},
+        "morphology": {"downsample": 2},
+        "quantization": {"bit_mapping": "mlp", "monotone_param": "softplus"},
+        # epochs 0-1: Stage 1 (epoch 0 on the tau_t subset), 2: Stage 2, 3-4: Stage 3
+        "curriculum": {"warmup_epochs": 1, "transition_epochs": 2},
+        "scheduler": {"warmup_epochs": 1}, "distillation": {"enabled": True},
+        "training": {"amp": True, "map_interval": 1},
+    }
+    t0 = time.perf_counter()
+    trainer = Trainer(config, device=device)
+    init_s = time.perf_counter() - t0
+    check(trainer.amp_dtype == torch.bfloat16, "amp not bf16")
+    check((out / "complexity_scores.npy").exists()
+          and (out / "complexity_scores.npy.meta.json").exists(), "scores cache not written")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rescored = trainer._compute_complexity_scores(use_cache=False)
+    score_s = time.perf_counter() - t0
+    check(np.array_equal(rescored, trainer.complexity_scores), "Eq.(8) scores not deterministic")
+    fw0 = trainer.model.complexity_analyzer.feature_weights.clone()
+
+    # kernel launches per path, against the eval forwards that ran them
+    counts = {"evaluate": [0, 0], "val_loss": [0, 0]}
+    forwards = [0]
+
+    def count_forward(module, args, kwargs):
+        if kwargs.get("quantize", True) and not kwargs.get("training", False):
+            forwards[0] += 1
+
+    def counted(name, fn):
+        def run(epoch):
+            l0, f0 = sq.spatial_quantize.launches, forwards[0]
+            r = fn(epoch)
+            torch.cuda.synchronize()
+            counts[name][0] += sq.spatial_quantize.launches - l0
+            counts[name][1] += forwards[0] - f0
+            return r
+        return run
+
+    trainer.evaluate = counted("evaluate", trainer.evaluate)
+    trainer.compute_val_loss = counted("val_loss", trainer.compute_val_loss)
+    hook = trainer.model.register_forward_pre_hook(count_forward, with_kwargs=True)
+    sq.spatial_quantize.launches = 0
+    t0 = time.perf_counter()
+    result = trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = sq.spatial_quantize.launches
+    hook.remove()
+    hist = trainer.history
+    emit({"phase": "train_from_disk", "gpu": gpu, "images": [DISK_TRAIN, DISK_VAL],
+          "img_size": img, "batch": batch, "epochs": DISK_EPOCHS,
+          "dataset_write_s": write_s, "trainer_init_s": init_s, "scoring_s": score_s,
+          "scoring_images_per_s": DISK_TRAIN / score_s, "train_call_s": train_s,
+          "result": result,
+          "epochs_detail": [{k: h.get(k) for k in (
+              "epoch", "stage", "subset_size", "batches", "loss_total", "loss_det", "val_loss",
+              "map50", "map50_95", "avg_bits", "epoch_s", "train_s", "eval_s")} for h in hist],
+          "train_images_per_s": [h["batches"] * batch / h["train_s"] for h in hist],
+          "evaluate_images_per_s": [DISK_VAL / h["eval_s"] for h in hist],
+          "feature_weights": [round(float(v), 6) for v in
+                              trainer.model.complexity_analyzer.feature_weights],
+          "launches": {"spatial_quant": launches, **{k: v[0] for k, v in counts.items()}},
+          "quantized_eval_forwards": {k: v[1] for k, v in counts.items()}})
+    check([h["stage"] for h in hist] == [1, 1, 2, 3, 3], "stages are not 1, 1, 2, 3, 3")
+    check(hist[0]["subset_size"] is not None and hist[0]["subset_size"] < DISK_TRAIN,
+          f"the Stage-1 tau_t subset did not filter: {hist[0]['subset_size']}")
+    fw = trainer.model.complexity_analyzer.feature_weights
+    check(not torch.equal(fw, fw0) and bool((fw >= 0).all())
+          and abs(float(fw.sum()) - 1.0) < 1e-5, f"no Stage-2 refit onto the simplex: {fw}")
+    for h in hist:
+        check(all(np.isfinite(h[k]) for k in LOSS_KEYS) and np.isfinite(h["val_loss"]),
+              f"non-finite loss in epoch {h['epoch']}")
+        if h["stage"] >= 2:
+            check(np.isfinite(h["map50"]) and np.isfinite(h["map50_95"])
+                  and 2.0 <= h["avg_bits"] <= 8.0, f"bad evaluate in epoch {h['epoch']}: {h}")
+    for name, (n_launch, n_fwd) in counts.items():
+        check(n_fwd > 0 and n_launch == 3 * n_fwd,
+              f"{name}: {n_launch} spatial_quant launches in {n_fwd} quantized forwards")
+    check(launches == sum(v[0] for v in counts.values()), "a launch outside evaluate/val loss")
+    for name in ("best.ckpt", "last.ckpt", "history.json"):
+        check((out / name).exists(), f"{name} not written")
+    _evaluate_split(trainer, DISK_EPOCHS - 1, gpu)
+
+    # resume: a fresh trainer from last.ckpt holds the same state, bitwise
+    resumed = Trainer(config, device=device)
+    resumed.load_checkpoint(out / "last.ckpt")
+    diff = _differing_state(trainer, resumed)
+    emit({"phase": "resume", "gpu": gpu, "step_count": resumed.optimizer.step_count,
+          "tensors_compared": len(trainer.model.state_dict()) + 3 * len(trainer.optimizer.params),
+          "differing": diff[:8]})
+    check(not diff and resumed.optimizer.step_count == sum(h["batches"] for h in hist),
+          f"resumed state differs: {diff[:8]}")
+    del resumed
+
+    # best.ckpt served through the kernel
+    pred = Predictor(str(out / "best.ckpt"), conf_threshold=0.25, iou_threshold=0.45,
+                     max_det=300, dtype=torch.bfloat16, device=device)
+    images = serving_images(seed=8, count=1)
+    sq.spatial_quantize.launches = 0
+    results = pred.predict_batch(images, batch_size=8)
+    torch.cuda.synchronize()
+    serve_launches = sq.spatial_quantize.launches
+    emit({"phase": "resumed_serving", "gpu": gpu, "images": len(results),
+          "avg_bits": round(results[0]["avg_bits"], 4),
+          "launches": {"spatial_quant": serve_launches}})
+    check(serve_launches == 3, f"best.ckpt served with {serve_launches} launches (expected 3)")
+    for r in results:
+        check(2.0 <= r["avg_bits"] <= 8.0 and np.isfinite(r["complexity_map"]).all(),
+              "best.ckpt served a bad result")
+    backend_parity(pred, images, device, "resumed_backend_parity")
+    del pred
+
+    # the host loader and the device pipeline alone; the idle share of an epoch
+    host_ips = _images_per_s(DataLoader(trainer.train_dataset, batch, shuffle=True, seed=1,
+                                        num_workers=2), device, DISK_TRAIN // batch)
+    ds = trainer.train_dataset  # the same augmentation without HSV: its share of the loader
+    ds_no_hsv = YOLODataset(ds.img_dir, img, ds.max_boxes, augment=True, hsv_p=0.0,
+                            mosaic_p=ds.mosaic_p, cache_images=True)
+    ds_no_hsv._img_cache = ds._img_cache  # decoded already: time the augmentation only
+    no_hsv_ips = _images_per_s(DataLoader(ds_no_hsv, batch, shuffle=True, seed=1,
+                                          num_workers=2), device, DISK_TRAIN // batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_epoch(DISK_EPOCHS - 1)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, n_kernels = _device_busy_ms(prof)
+    epoch_ms = hist[-1]["train_s"] * 1e3
+    del trainer
+
+    dp_config = dict(config, epochs=1, output_dir=str(workdir / "disk_dp"),
+                     curriculum={"enabled": False, "warmup_epochs": 0, "transition_epochs": 0},
+                     data=dict(config["data"], device_pipeline=True))
+    dp = Trainer(dp_config, device=device)
+    pipe = dp._dev_train
+    check(pipe.bank.device.type == device.type, "the device pipeline's bank is not on the card")
+    clean_ds = YOLODataset(pipe.dataset.img_dir, img, 128)
+    clean = np.stack([clean_ds.get_item(i)["image"] for i in range(len(pipe))])
+    check(torch.equal(pipe.bank.cpu(), torch.from_numpy(clean)),
+          "the device bank differs from the host loader's clean images")
+    rng = np.random.default_rng(5)
+    plan, labels = pipe._plan_batch(list(range(batch)), rng, True)
+    idx4, mosaic_on, hsv_on, gains, s_, tx, ty, flip = plan
+    check(mosaic_on.any() and hsv_on.any() and (s_ != 1).any() and flip.any(),
+          "an augmentation never fired in the plan")
+    dev_plan = [torch.from_numpy(a).to(device) for a in plan]
+    aug = augment_batch(pipe.bank, *dev_plan)
+    dev_plan[2] = torch.zeros_like(dev_plan[2])  # the same plan without HSV
+    no_hsv = augment_batch(pipe.bank, *dev_plan)
+    check(not torch.equal(aug, no_hsv), "HSV changed no pixel")
+    moved = pipe._affine_labels(pipe.boxes[0], pipe.classes[0], s_[0], tx[0], ty[0])[0]
+    check(len(pipe.boxes[0]) > 0 and (moved.shape != pipe.boxes[0].shape
+                                      or not np.array_equal(moved, pipe.boxes[0])),
+          "the affine did not move the boxes")
+    dev_ips = _images_per_s(dp.train_loader, device, DISK_TRAIN // batch)
+    t0 = time.perf_counter()
+    dp_epoch = dp.train_epoch(DISK_EPOCHS - 1)
+    torch.cuda.synchronize()
+    dp_epoch_s = time.perf_counter() - t0
+    emit({"phase": "device_pipeline", "gpu": gpu, "bank_images": len(pipe),
+          "bank_bitwise_equal_host": True, "plan": {
+              "mosaic": int(mosaic_on.sum()), "hsv_tiles": int(hsv_on.sum()),
+              "affine_scale_range": [float(s_.min()), float(s_.max())],
+              "flip": int(flip.sum())},
+          "epoch": {k: dp_epoch[k] for k in ("stage", "loss_total", "loss_det", "avg_bits")},
+          "epoch_s": dp_epoch_s, "train_images_per_s": dp_epoch["batches"] * batch / dp_epoch_s})
+    check(all(np.isfinite(dp_epoch[k]) for k in LOSS_KEYS), "non-finite loss through the "
+                                                           "device pipeline")
+    del dp, pipe, aug, no_hsv
+
+    emit({"phase": "data_throughput", "gpu": gpu,
+          "host_loader_images_per_s": host_ips, "device_pipeline_images_per_s": dev_ips,
+          "host_loader_without_hsv_images_per_s": no_hsv_ips,
+          "host_loader": "DataLoader, num_workers 2, mosaic 1.0 + affine + HSV 0.5 + flip 0.5",
+          "epoch_idle": {"profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+                         "kernel_events": n_kernels,
+                         "idle_share_profiled": 1.0 - busy_ms / prof_wall_ms,
+                         "unprofiled_epoch_ms": epoch_ms,
+                         "idle_share_unprofiled_epoch": 1.0 - busy_ms / epoch_ms},
+          "timing": "host clock around synchronised work; idle: union of kernel intervals "
+                    "(torch.profiler) over one Stage-3 epoch of the host loader"})
+    return {"evaluate": counts["evaluate"][0], "val_loss": counts["val_loss"][0],
+            "resumed_serving": serve_launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -729,7 +1067,7 @@ def main() -> int:
     device = torch.device("cuda")
     dtype = torch.bfloat16
 
-    phase_environment()
+    gpu = phase_environment()
     worst = phase_kernel_vs_plain(device)
     scratch = ROOT / "build"  # gitignored; the run writes nothing outside the checkout
     scratch.mkdir(exist_ok=True)
@@ -740,7 +1078,8 @@ def main() -> int:
         trainer, path_launches = phase_training(device, Path(tmp))
         phase_train_timing(trainer, device)
         del trainer
-    phase_step_cuda_vs_cpu(device)
+        phase_step_cuda_vs_cpu(device)
+        path_launches.update(phase_train_from_disk(device, Path(tmp), gpu))
 
     emit({"kernels": [{
         "name": "spatial_quant", "route": "cuda", "source": KERNEL_SOURCE,

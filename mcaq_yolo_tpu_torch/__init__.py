@@ -5,24 +5,29 @@ A port of the JAX/Flax package `mcaq_yolo_tpu` (which stays in the
 repository as the reference).  It covers the deployed inference path
 (letterbox -> YOLOv8 backbone -> per-scale MCAQ transform: morphology ->
 complexity MLP -> bit mapper -> spatial quantizer -> PAN neck -> Detect
-head -> decode + NMS), the training step and the Trainer's core (train
-mode, fractional-bit compose, YOLOv8 loss with distillation, AdamW,
-curriculum), and post-training calibration.
+head -> decode + NMS), training from a YOLO-format dataset on disk (host
+and device-resident loaders, Eq.(8) curriculum scoring and sampling, train
+mode, fractional-bit compose, YOLOv8 loss with distillation, AdamW, mAP
+evaluation, checkpoints that either package resumes, the CLI), and
+post-training calibration.
 
 The one TPU kernel of the reference (the fused Pallas spatial quantizer,
 `mcaq_yolo_tpu/ops/pallas_quant.py`) is a hand-written CUDA kernel here
-(`csrc/spatial_quant.cu`, built for sm_90a at first use by `ops/build.py`).
+(`csrc/spatial_quant.cu`, built for sm_90a at first use by `ops/build.py`,
+which also builds the host letterbox library `csrc/dataio.cpp` with g++).
 
 Layout
 ------
-core/       morphology metrics, bit allocation, quantization, curriculum
+core/       morphology metrics, Eq.(8) scores, bit allocation, quantization,
+            curriculum, NNLS refit
 models/     YOLOv8 family, MCAQ assembly, losses, flax-tree weight bridge
-ops/        the CUDA spatial-quantize kernel + its plain version, NMS
-data/       letterbox / unletterbox, seeded synthetic batches
-utils/      flax msgpack checkpoint reader and writer
+ops/        the CUDA spatial-quantize kernel + its plain version, NMS, builds
+data/       YOLO dataset, loader, generators, device pipeline, native
+            letterbox binding, seeded synthetic batches
+utils/      flax msgpack checkpoints, mAP evaluation, seeding, CUDA timing
 batch_norm  BatchNorm with flax's training-mode statistics
 inference   Predictor
-train       train step, optimizer, Trainer core
+train       train step, optimizer, Trainer, CLI
 calibrate   post-training EMA calibration, then freeze
 
 Entry points run on CUDA unless the caller passes device="cpu"; with no

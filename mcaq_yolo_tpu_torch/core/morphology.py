@@ -14,6 +14,11 @@ edge density, phi5 Euler-corrected inverse circularity of the adaptive
 binarization, plus three interaction terms -> (B, ht, wt, 8).  A small MLP
 maps phi to a complexity in [0, 1], which a bilateral filter smooths.
 
+`score_image_eq8` and `MorphologicalComplexityAnalyzer.score_image` are
+the deterministic Eq.(8) dataset scores of the curriculum; on a 640 px
+image at grid 8 they run the same engine on a 10 x 10 grid of 64 x 64
+tiles (the tile is the largest power of two <= 640 / 8).
+
 Not ported here: the 'global' metric mode and the legacy Canny / Otsu
 binarization variants (ROADMAP queue A).
 """
@@ -357,6 +362,26 @@ def compute_phi_tiles(
     return phi, detailed
 
 
+def _eq8(phi: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """C = sum_i |alpha_i| phi_i / sum |alpha|, tile-averaged, in [0, 1]."""
+    a = torch.abs(alpha.to(torch.float32))
+    a = a / torch.clamp(a.sum(), min=1e-8)
+    c = (phi[..., :5] * a.reshape(1, 1, 1, 5)).sum(dim=-1)
+    return torch.clamp(c.mean(dim=(1, 2)), 0.0, 1.0)
+
+
+def score_image_eq8(images: torch.Tensor, grid_size: int = 8,
+                    alpha=None) -> torch.Tensor:
+    """Model-free Eq.(8) per-image complexity (Algorithm 3 line 1;
+    reference `morphology.py:446-466`): phi of the whole image (no
+    downsampling), weighted by `alpha` (default the uniform initial
+    weights).  images (B, H, W, 3) uint8 or float -> (B,) in [0, 1]."""
+    phi, _ = compute_phi_tiles(images, grid_size=grid_size)
+    if alpha is None:
+        alpha = torch.full((5,), 0.2, device=phi.device)
+    return _eq8(phi, torch.as_tensor(alpha, device=phi.device))
+
+
 # ---------------------------------------------------------------------------
 # Bilateral filter, complexity MLP, analyzer
 # ---------------------------------------------------------------------------
@@ -410,8 +435,10 @@ class MorphologicalComplexityAnalyzer(nn.Module):
     """features NHWC -> complexity (B, ht, wt) in [0, 1]: phi (no grad) ->
     ComplexityMLP -> bilateral filter (sigma_s 2, sigma_r 0.1) -> clip.
 
-    `feature_weights` is the reference's Eq.(8) scoring buffer; it is
-    carried through checkpoints but not used on the inference path."""
+    `feature_weights` is the Eq.(8) weights buffer of the deterministic
+    dataset score (`score_image`), refit to the trained MLP by the
+    curriculum (`morphology_cv2.fit_feature_weights`); the inference path
+    does not read it."""
 
     def __init__(self, grid_size: int = 8, downsample: int = 1):
         super().__init__()
@@ -425,3 +452,10 @@ class MorphologicalComplexityAnalyzer(nn.Module):
         B, ht, wt, _ = phi.shape
         c = self.complexity_mlp(phi.reshape(-1, 8)).reshape(B, ht, wt)
         return torch.clamp(bilateral_filter(c), 0.0, 1.0)
+
+    def score_image(self, features: torch.Tensor) -> torch.Tensor:
+        """Deterministic Eq.(8) per-image complexity for dataset sorting
+        (Algorithm 3 line 1) with this analyzer's phi and `feature_weights`:
+        (B,) in [0, 1]."""
+        phi, _ = compute_phi_tiles(features, self.grid_size, self.downsample)
+        return _eq8(phi, self.feature_weights)

@@ -154,6 +154,12 @@ class MCAQYOLO(nn.Module):
         }
         return raw_maps, aux
 
+    def score_image(self, x: torch.Tensor) -> torch.Tensor:
+        """Deterministic Eq.(8) per-image complexity of the input image
+        (Algorithm 3 line 1): the offline dataset-scoring entry.  x (B, H, W,
+        3) uint8 or float in [0, 1] -> (B,)."""
+        return self.complexity_analyzer.score_image(x)
+
     def backbone_features(self, x: torch.Tensor, training: bool = False):
         """Unquantized backbone features (C3, C4, C5), NCHW channels_last:
         the student-side taps for feature-level distillation."""

@@ -18,11 +18,15 @@ kernel lands on `model.backbone.C2f_0.ConvBnSiLU_0.Conv_0.weight`:
 
 `to_jax_variables(model)` is the inverse (float32 arrays, int32
 num_batches, bool frozen).
+
+`params_tree(model, value_of)` and `params_from_tree(model, tree)` carry
+any per-parameter tensors (AdamW's moments) through the same layout
+transforms, for the optimizer state in optax's layout (`train.py`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -95,43 +99,88 @@ def load_jax_variables(model: nn.Module, variables: Dict) -> nn.Module:
     return model
 
 
-def to_jax_variables(model: nn.Module) -> Dict[str, Dict]:
-    """The model's weights and state as a flax variable tree of numpy arrays."""
-    out: Dict[str, Dict] = {c: {} for c in COLLECTIONS}
+# torch -> flax and flax -> torch layouts of Conv and Dense kernels
+_CONV = (lambda a: a.transpose(2, 3, 1, 0), lambda a: a.transpose(3, 2, 0, 1))
+_DENSE = (np.transpose, np.transpose)
+_SAME = (None, None)
 
-    def put(col, path, tensor, conv=None):
-        arr = tensor.detach().to("cpu")
-        if arr.is_floating_point():
-            arr = arr.to(torch.float32)
-        arr = arr.numpy()
-        if conv is not None:
-            arr = conv(arr)
-        node = out[col]
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = np.array(arr)
 
+def _param_leaves(model: nn.Module):
+    """(flax params path, parameter, (to flax, from flax) layouts) for
+    every parameter of `model`."""
     for qual, m in model.named_modules():
         path = tuple(qual.split(".")) if qual else ()
         if isinstance(m, nn.Conv2d):
-            put("params", path + ("kernel",), m.weight, lambda a: a.transpose(2, 3, 1, 0))
+            yield path + ("kernel",), m.weight, _CONV
             if m.bias is not None:
-                put("params", path + ("bias",), m.bias)
+                yield path + ("bias",), m.bias, _SAME
         elif isinstance(m, nn.Linear):
-            put("params", path + ("kernel",), m.weight, lambda a: a.T)
-            put("params", path + ("bias",), m.bias)
+            yield path + ("kernel",), m.weight, _DENSE
+            yield path + ("bias",), m.bias, _SAME
         elif isinstance(m, _NORMS):
-            put("params", path + ("scale",), m.weight)
-            put("params", path + ("bias",), m.bias)
-            if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
-                put("batch_stats", path + ("mean",), m.running_mean)
-                put("batch_stats", path + ("var",), m.running_var)
+            yield path + ("scale",), m.weight, _SAME
+            yield path + ("bias",), m.bias, _SAME
         elif isinstance(m, MonotoneDense):
-            put("params", path + ("theta",), m.theta)
-            put("params", path + ("bias",), m.bias)
+            yield path + ("theta",), m.theta, _SAME
+            yield path + ("bias",), m.bias, _SAME
+
+
+def _put(tree: Dict, path, tensor: torch.Tensor, conv=None) -> None:
+    arr = tensor.detach().to("cpu")
+    if arr.is_floating_point():
+        arr = arr.to(torch.float32)
+    arr = arr.numpy()
+    if conv is not None:
+        arr = conv(arr)
+    node = tree
+    for k in path[:-1]:
+        node = node.setdefault(k, {})
+    node[path[-1]] = np.array(arr)
+
+
+def params_tree(model: nn.Module,
+                value_of: Callable[[nn.Parameter], torch.Tensor]) -> Dict:
+    """A flax 'params'-layout tree holding value_of(p) (a tensor of p's
+    shape) for every parameter p, with the parameters' layout transforms."""
+    tree: Dict = {}
+    for path, p, (to_flax, _) in _param_leaves(model):
+        _put(tree, path, value_of(p), to_flax)
+    return tree
+
+
+def params_from_tree(model: nn.Module, tree: Dict) -> Dict[nn.Parameter, torch.Tensor]:
+    """The inverse of `params_tree`: parameter -> float32 CPU tensor in the
+    parameter's layout.  Raises ValueError on a missing, extra or misshapen
+    leaf."""
+    leaves = dict(_leaves(tree))
+    out = {}
+    for path, p, (_, from_flax) in _param_leaves(model):
+        if path not in leaves:
+            raise ValueError(f"no leaf for {'/'.join(path)}")
+        arr = np.asarray(leaves.pop(path), np.float32)
+        if from_flax is not None:
+            arr = from_flax(arr)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"shape mismatch at {'/'.join(path)}: {arr.shape} vs "
+                             f"{tuple(p.shape)}")
+        out[p] = torch.from_numpy(np.array(arr))
+    if leaves:
+        raise ValueError(f"leaves with no parameter: {sorted(leaves)[:3]}")
+    return out
+
+
+def to_jax_variables(model: nn.Module) -> Dict[str, Dict]:
+    """The model's weights and state as a flax variable tree of numpy arrays."""
+    out: Dict[str, Dict] = {c: {} for c in COLLECTIONS}
+    out["params"] = params_tree(model, lambda p: p)
+    for qual, m in model.named_modules():
+        path = tuple(qual.split(".")) if qual else ()
+        if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
+            _put(out["batch_stats"], path + ("mean",), m.running_mean)
+            _put(out["batch_stats"], path + ("var",), m.running_var)
         for bname, buf in m.named_buffers(recurse=False):
             if bname in ("running_min", "running_max", "num_batches", "frozen"):
-                put("quant_stats", path + (bname,), buf)
+                _put(out["quant_stats"], path + (bname,), buf)
             elif bname == "feature_weights":
-                put("buffers", path + (bname,), buf)
+                _put(out["buffers"], path + (bname,), buf)
     return {c: v for c, v in out.items() if v}

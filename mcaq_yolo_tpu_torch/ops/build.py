@@ -1,12 +1,13 @@
 """
-Build the port's CUDA kernels at first use.
+Build the port's native libraries at first use.
 
-Each `csrc/<name>.cu` exposes a plain C interface and is compiled by nvcc
-into `build/kernels/lib<name>-<hash>.so` at the repository root, then
-loaded with ctypes (no PyTorch headers, so a build takes seconds).  The
-hash covers the source and the flags, so an edited source rebuilds and
+Each `csrc/<name>.cu` (a CUDA kernel) or `csrc/<name>.cpp` (host code)
+exposes a plain C interface and is compiled, by nvcc or by g++, into
+`build/kernels/lib<name>-<hash>.so` at the repository root, then loaded
+with ctypes (no PyTorch headers, so a build takes seconds).  The hash
+covers the source and the flags, so an edited source rebuilds and
 `python3 chip_smoke.py` alone builds everything.  A failed build raises
-with nvcc's output.  Nothing here runs at import time.
+with the compiler's output.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -22,12 +23,14 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("spatial_quant",)
+KERNELS = ("spatial_quant",)  # CUDA sources, built by nvcc
+HOST_LIBRARIES = ("dataio",)  # C++ sources, built by g++
 
 # -fmad=false: no FMA contraction anywhere in the kernel, so the f32
 # arithmetic rounds after every operation exactly as the plain version's
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -43,21 +46,37 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _cxx() -> str:
+    found = shutil.which("g++") or shutil.which("c++")
+    if not found:
+        raise RuntimeError("g++ not found: the port's host library csrc/dataio.cpp "
+                           "needs a C++ compiler")
+    return found
+
+
+def _source_and_flags(name: str):
+    if name in HOST_LIBRARIES:
+        return CSRC / f"{name}.cpp", CXX_FLAGS
+    return CSRC / f"{name}.cu", NVCC_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    src, flags = _source_and_flags(name)
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
-    """Start nvcc for one source; returns (process, tmp path, final path) or
-    None when the library is already built."""
+    """Start the compiler for one source; returns (process, tmp path, final
+    path) or None when the library is already built."""
     out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"tmp{os.getpid()}-{out.name}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    src, flags = _source_and_flags(name)
+    compiler = _cxx() if name in HOST_LIBRARIES else _nvcc()
+    cmd = [compiler, *flags, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, out
@@ -66,16 +85,17 @@ def _start(name: str):
 def _finish(name: str, job) -> None:
     proc, tmp, out = job
     log, _ = proc.communicate()
-    (BUILD_DIR / f"{name}.nvcc.log").write_text(log)
+    (BUILD_DIR / f"{name}.build.log").write_text(log)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+        src = _source_and_flags(name)[0].name
+        raise RuntimeError(f"the build of {src} failed (exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
 
 
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
-    """Build every kernel library that is missing, one nvcc per source, all
-    started together.  Returns name -> library path."""
+    """Build every library of `names` that is missing, one compiler per
+    source, all started together.  Returns name -> library path."""
     names = list(names)
     with _lock:
         jobs = {n: _start(n) for n in names}
@@ -105,7 +125,8 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 def build_log(name: str) -> str:
-    """nvcc's output (including -Xptxas -v register counts) of the last
-    build of `name`, or '' if it was not built in this checkout."""
-    p = BUILD_DIR / f"{name}.nvcc.log"
+    """The compiler's output (for a kernel, with -Xptxas -v register
+    counts) of the last build of `name`, or '' if it was not built in this
+    checkout."""
+    p = BUILD_DIR / f"{name}.build.log"
     return p.read_text() if p.exists() else ""

@@ -1,7 +1,9 @@
 """
-Training (port of `mcaq_yolo_tpu/train.py:76-260, 268-326, 379-449,
-484-518, 682-873`): the train step, its optimizer, the eval and
-validation-loss steps, the teacher export, and the `Trainer`'s core.
+Training (port of `mcaq_yolo_tpu/train.py`): the train step, its
+optimizer, the eval and validation-loss steps, the teacher export, the
+`Trainer` and the command line
+
+    python -m mcaq_yolo_tpu_torch.train --config configs/train_config.yaml [--device cpu]
 
   * `make_train_step` — one forward in train mode (BatchNorm on batch
     statistics, continuous bits, the quantizers' fractional compose and EMA
@@ -16,23 +18,31 @@ validation-loss steps, the teacher export, and the `Trainer`'s core.
     max_norm / ||g|| only when ||g|| >= max_norm, the first update uses the
     schedule's value at step 0, and a parameter without a gradient is
     updated with a zero one (decay and moments still move), as optax does.
-  * `Trainer` — the reference's config schema (`configs/train_config.yaml`)
-    with the loaders passed in: batches are dicts {"image": uint8 (B, H, W,
-    3), "gt_boxes": (B, M, 4), "gt_classes": (B, M), "gt_mask": (B, M)}.
-    `training.amp` runs the network's convolutions in bfloat16 under
-    autocast on CUDA, with float32 weights (the reference's TPU gate); the
-    MCAQ math, the teacher and the losses stay float32.
+    Its state converts to and from optax's layout (`state_tree`), so
+    checkpoints resume in either package.
+  * `Trainer` — the reference's config schema (`configs/train_config.yaml`):
+    loaders from a YOLO-format dataset on disk (host `DataLoader` or the
+    device-resident pipeline) or passed in as batches {"image": uint8 (B,
+    H, W, 3), "gt_boxes": (B, M, 4), "gt_classes": (B, M), "gt_mask": (B,
+    M)}; Eq.(8) curriculum scoring and tau_t subset sampling; mAP
+    `evaluate` (on CUDA its eval forward runs the spatial_quant kernel,
+    three launches per batch from Stage 2 on); best / last checkpoints and
+    resume; `train()`.  `training.amp` runs the network's convolutions in
+    bfloat16 under autocast on CUDA, with float32 weights; the MCAQ math,
+    the teacher and the losses stay float32.
 
-Not ported yet (ROADMAP A.5, A.6): building the loaders from
-`data.yaml_path`, complexity scoring and curriculum subset sampling, mAP
-`evaluate`, resume with the optimizer state in optax's layout, the full
-`train()` loop with best/last checkpoints, FSDP, the command line.
+Not ported yet: FSDP (`training.parallel`), the exact cv2 scoring backend
+(`curriculum.score_backend: cv2` raises).
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import json
 import math
+import os
+import time
 import warnings
 from pathlib import Path
 from typing import Callable, Dict, Optional
@@ -41,14 +51,30 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .core import morphology_cv2
 from .core.bit_allocation import bit_histogram, enforce_monotonic_params
 from .core.curriculum import CurriculumScheduler
+from .core.morphology import compute_phi_tiles, score_image_eq8
+from .data.dataset import DataLoader, YOLODataset, compute_dataset_complexity, load_dataset_yaml
 from .device import DeviceLike, resolve_device
 from .models.losses import MCAQYOLOLoss, kd_feature_loss
 from .models.mcaq_yolo import MCAQYOLO
-from .models.weights_io import load_jax_variables, to_jax_variables
+from .models.weights_io import (
+    COLLECTIONS,
+    load_jax_variables,
+    params_from_tree,
+    params_tree,
+    to_jax_variables,
+)
 from .models.yolo import YOLOv8, decode_and_nms
 from .utils.checkpoint import load_checkpoint, save_checkpoint, write_msgpack
+from .utils.evaluation import (
+    compute_map,
+    compute_map50_95,
+    detections_to_numpy,
+    extract_targets_per_image,
+)
+from .utils.repro import set_global_seed
 
 # ---------------------------------------------------------------------------
 # Optimizer: clip + AdamW + warmup-cosine schedule
@@ -116,6 +142,7 @@ class Optimizer:
         self.opt = torch.optim.AdamW([g for g in groups if g["params"]], lr=schedule(0),
                                      betas=tuple(betas), eps=1e-8, fused=fused)
         self.schedule = schedule
+        self.kind = kind
         self.step_count = 0
 
     def zero_grad(self) -> None:
@@ -134,6 +161,53 @@ class Optimizer:
         self.opt.step()
         self.step_count += 1
         return norm
+
+    def state_tree(self, model: nn.Module) -> Dict:
+        """The optimizer state as `flax.serialization.to_state_dict` gives it
+        for the reference's optax.chain(clip_by_global_norm, adamw(schedule,
+        mask)) (adam: no mask state): {'0': {}, '1': {'0': {'count', 'mu',
+        'nu'}, '1': {'inner_state': {}}, '2': {'count'}}}, with `mu` and
+        `nu` (AdamW's exp_avg and exp_avg_sq) in the flax params layout and
+        both counts equal to `step_count`."""
+
+        def moment(key):
+            def value_of(p):
+                st = self.opt.state.get(p, {})
+                return st[key] if key in st else torch.zeros_like(p)
+            return params_tree(model, value_of)
+
+        def count():
+            return np.asarray(self.step_count, np.int32)
+
+        adam = {"count": count(), "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}
+        if self.kind == "adamw":
+            inner = {"0": adam, "1": {"inner_state": {}}, "2": {"count": count()}}
+        else:
+            inner = {"0": adam, "1": {"count": count()}}
+        return {"0": {}, "1": inner}
+
+    def load_state_tree(self, model: nn.Module, tree: Dict) -> None:
+        """Restore AdamW's moments and the update count from a `state_tree`
+        layout (one the reference's `Trainer.save_checkpoint` wrote).
+        Raises ValueError on another layout or unequal counts."""
+        keys = ("0", "1", "2") if self.kind == "adamw" else ("0", "1")
+        inner = tree.get("1", {})
+        if set(tree) != {"0", "1"} or set(inner) != set(keys):
+            raise ValueError(f"optimizer state is not optax's {self.kind} chain layout: "
+                             f"{sorted(tree)} / {sorted(inner)}")
+        adam = inner["0"]
+        count = int(np.asarray(adam["count"]))
+        if int(np.asarray(inner[keys[-1]]["count"])) != count:
+            raise ValueError("the optimizer state's Adam and schedule counts differ")
+        mu = params_from_tree(model, adam["mu"])
+        nu = params_from_tree(model, adam["nu"])
+        sd = self.opt.state_dict()
+        order = [p for g in self.opt.param_groups for p in g["params"]]
+        sd["state"] = {} if count == 0 else {
+            i: {"step": torch.tensor(float(count), dtype=torch.float32),
+                "exp_avg": mu[p], "exp_avg_sq": nu[p]} for i, p in enumerate(order)}
+        self.opt.load_state_dict(sd)  # moves the moments onto the parameters' device
+        self.step_count = count
 
 
 # ---------------------------------------------------------------------------
@@ -286,23 +360,30 @@ def export_teacher_from_ckpt(ckpt_path: str, out_path: str, variant: str,
 
 
 class Trainer:
-    """MCAQ-YOLO trainer core on the reference's config schema, with the
-    loaders passed in (`train_loader` must have a length: the schedule's
-    steps per epoch).  Builds the model, loss, teacher (required when
-    `distillation.enabled`, read from `model.teacher_path`), curriculum,
-    optimizer and schedule on `device` (default CUDA)."""
+    """End-to-end MCAQ-YOLO trainer on the reference's config schema
+    (`configs/train_config.yaml`), on `device` (default CUDA).
 
-    def __init__(self, config: Dict, train_loader, val_loader=None,
+    Without loaders it builds them from `data.yaml_path` (or the
+    `data.train` / `data.val` image directories) with the reference's
+    augmentation defaults, through the host `DataLoader` or, with
+    `data.device_pipeline: true`, the device-resident pipeline; it then
+    scores every training image with Eq.(8) for the curriculum (cached in
+    `output_dir`).  Loaders passed in (e.g. lists of in-memory batches; the
+    train loader must have a length) are used as they are, without
+    curriculum scoring.  The teacher is required when
+    `distillation.enabled` (read from `model.teacher_path`)."""
+
+    def __init__(self, config: Dict, train_loader=None, val_loader=None,
                  device: DeviceLike = None):
         self.config = config
         self.device = resolve_device(device)
         self.seed = int(config.get("seed", 0))
+        set_global_seed(self.seed, bool(config.get("deterministic", False)))
         self.epochs = int(config.get("epochs", 300))
         self.batch_size = int(config.get("batch_size", 16))
         self.lr = float(config.get("learning_rate", 1e-3))
         self.output_dir = Path(config.get("output_dir", "outputs"))
         self.output_dir.mkdir(parents=True, exist_ok=True)
-        self.train_loader, self.val_loader = train_loader, val_loader
 
         mcfg = config.get("model", {})
         qcfg = config.get("quantization", {})
@@ -344,6 +425,18 @@ class Trainer:
                     "distillation.enabled: false.")
             self.teacher = load_teacher(tpath, self.variant, self.num_classes, self.device)
 
+        # ---- data ----
+        self.train_dataset = self.val_dataset = None
+        self.device_pipeline = bool(dcfg.get("device_pipeline", False))
+        self.num_workers = int(dcfg.get("num_workers", 0))
+        if train_loader is None:
+            self._build_loaders(dcfg)
+        else:
+            self.device_pipeline = False
+            self.train_loader, self.val_loader = train_loader, val_loader
+
+        # ---- curriculum ----
+        self.curriculum_cfg = ccfg
         self.curriculum = CurriculumScheduler(
             warmup_epochs=int(ccfg.get("warmup_epochs", 20)),
             transition_epochs=int(ccfg.get("transition_epochs", 50)),
@@ -361,10 +454,14 @@ class Trainer:
             controller_kp=float(ccfg.get("controller_kp", 0.3)),
             controller_deadband=float(ccfg.get("controller_deadband", 0.1)),
         )
+        self.complexity_scores = None
+        if ccfg.get("enabled", True) and self.train_dataset is not None:
+            self.complexity_scores = self._compute_complexity_scores()
 
+        # ---- optimizer: clip + AdamW + warmup-cosine ----
         ocfg = config.get("optimizer", {})
         scfg = config.get("scheduler", {})
-        steps_per_epoch = max(1, len(train_loader))
+        steps_per_epoch = max(1, len(self.train_loader))
         warmup_steps = int(scfg.get("warmup_epochs", 5)) * steps_per_epoch
         self.schedule = warmup_cosine_schedule(
             self.lr, warmup_steps, self.epochs * steps_per_epoch,
@@ -375,17 +472,147 @@ class Trainer:
             decay_bit_mapper=bool(ocfg.get("decay_bit_mapper", False)),
             kind=str(ocfg.get("type", "adamw")).lower())
 
+        self.map_interval = max(1, int(config.get("training", {}).get("map_interval", 1)))
         self.train_step = make_train_step(self.model, self.loss_obj, self.teacher,
                                           self.amp_dtype)
         self.eval_step = make_eval_step(self.model, self.num_classes)
         self.val_loss_step = make_val_loss_step(self.model, self.loss_obj)
+        self.history: list = []
+        self.best_map = -1.0
+
+    def _build_loaders(self, dcfg: Dict) -> None:
+        """The train / val datasets and loaders from `data.yaml_path` or
+        `data.train` / `data.val`, with the reference's augmentation
+        defaults (mosaic 1.0, hflip 0.5, HSV 0.5, scale 0.5, translate
+        0.1, image cache on)."""
+        yaml_path = dcfg.get("yaml_path")
+        if yaml_path and os.path.exists(str(yaml_path)):
+            ds = load_dataset_yaml(str(yaml_path))
+            train_dir, val_dir = ds["train"], ds["val"]
+        else:
+            train_dir = dcfg.get("train")
+            val_dir = dcfg.get("val", train_dir)
+        if not train_dir:
+            raise ValueError("no training data: set data.yaml_path or data.train, or pass "
+                             "train_loader")
+        max_boxes = int(dcfg.get("max_boxes", 128))
+        self.train_dataset = YOLODataset(
+            train_dir, self.img_size, max_boxes, augment=True, seed=self.seed,
+            hflip_p=float(dcfg.get("hflip_p", 0.5)), hsv_p=float(dcfg.get("hsv_p", 0.5)),
+            mosaic_p=float(dcfg.get("mosaic_p", 1.0)),
+            scale_jitter=float(dcfg.get("scale", 0.5)),
+            translate=float(dcfg.get("translate", 0.1)),
+            cache_images=bool(dcfg.get("cache", True)))
+        self.val_dataset = YOLODataset(val_dir, self.img_size, max_boxes, augment=False,
+                                       seed=self.seed)
+        if self.device_pipeline:
+            # both splits in device memory; batches ship augmentation plans
+            from .data.device_pipeline import DevicePipeline
+
+            self._dev_train = DevicePipeline(self.train_dataset, device=self.device)
+            self._dev_val = DevicePipeline(self.val_dataset, device=self.device)
+            self.train_loader = self._dev_train.loader(self.batch_size, shuffle=True,
+                                                       seed=self.seed)
+            self.val_loader = self._dev_val.loader(self.batch_size, shuffle=False,
+                                                   drop_last=False, augment=False)
+        else:
+            self.train_loader = DataLoader(self.train_dataset, self.batch_size, shuffle=True,
+                                           seed=self.seed, num_workers=self.num_workers)
+            self.val_loader = DataLoader(self.val_dataset, self.batch_size, shuffle=False,
+                                         drop_last=False, num_workers=self.num_workers)
+
+    # ------------------------------------------------------------------
+    # Curriculum scoring and sampling
+    # ------------------------------------------------------------------
+
+    def _score_backend(self) -> str:
+        backend = str(self.curriculum_cfg.get("score_backend", "train"))
+        if backend == "cv2":
+            raise NotImplementedError(
+                "curriculum.score_backend 'cv2' (the exact OpenCV metric backend) is not "
+                "ported yet; use 'train' (Eq.8 with the training metrics) or 'edge'")
+        return backend
+
+    def _scoring_dataset(self) -> YOLODataset:
+        return YOLODataset(self.train_dataset.img_dir, self.img_size,
+                           self.train_dataset.max_boxes, augment=False)
+
+    def _score_fn(self):
+        """The deterministic per-image Eq.(8) scorer with the analyzer's phi
+        and its (refit) `feature_weights`: uint8 images -> (B,) scores."""
+        self._score_backend()
+
+        def fn(images):
+            x = torch.as_tensor(images).to(self.device)
+            return self.model.score_image(x).cpu().numpy()
+
+        return fn
+
+    def _compute_complexity_scores(self, use_cache: bool = True) -> np.ndarray:
+        """Offline Algorithm-3 scoring of the training images, without
+        augmentation, cached with a fingerprint in `output_dir` ('train':
+        Eq.8 with the uniform initial weights, a pure function of the image;
+        'edge': the model-free edge density)."""
+        backend = self._score_backend()
+        cache = str(self.output_dir / "complexity_scores.npy") if use_cache else None
+        if backend == "edge":
+            return compute_dataset_complexity(self._scoring_dataset(), None, cache_path=cache,
+                                              backend="edge", img_size=self.img_size)
+        grid = self.model.grid_size
+
+        def eq8(images):
+            x = torch.as_tensor(images).to(self.device)
+            return score_image_eq8(x, grid_size=grid).cpu().numpy()
+
+        return compute_dataset_complexity(self._scoring_dataset(), eq8, cache_path=cache,
+                                          backend="train-eq8", img_size=self.img_size)
+
+    def fit_feature_weights(self, max_batches: int = 16) -> np.ndarray:
+        """NNLS refit of the Eq.(8) `feature_weights` to the trained
+        complexity MLP over up to `max_batches` training batches, so that the
+        offline ordering follows the learned notion of complexity."""
+        analyzer = self.model.complexity_analyzer
+        phis, cs = [], []
+        with torch.no_grad():
+            for i, batch in enumerate(self.train_loader):
+                x = torch.as_tensor(batch["image"]).to(self.device)
+                phi, _ = compute_phi_tiles(x, self.model.grid_size)
+                c = analyzer.complexity_mlp(phi.reshape(-1, 8))
+                phis.append(phi.reshape(-1, 8).cpu().numpy())
+                cs.append(c.reshape(-1).cpu().numpy())
+                if i + 1 >= max_batches:
+                    break
+        alpha = morphology_cv2.fit_feature_weights(np.concatenate(phis), np.concatenate(cs))
+        with torch.no_grad():
+            analyzer.feature_weights.copy_(torch.as_tensor(alpha, dtype=torch.float32))
+        return alpha
+
+    def rescore_curriculum(self) -> None:
+        """Score the training images again with the (refit) analyzer."""
+        self.complexity_scores = compute_dataset_complexity(
+            self._scoring_dataset(), self._score_fn(), cache_path=None)
+
+    def _curriculum_indices(self, tau_t: float) -> Optional[np.ndarray]:
+        """Algorithm 3 line 9: D_t = {x : C(x) <= tau_t}, or the easiest
+        max(batch, 64) images when fewer qualify; None = the whole split."""
+        if tau_t >= 1.0 or self.complexity_scores is None:
+            return None
+        idx = np.where(self.complexity_scores <= tau_t)[0]
+        min_needed = max(self.batch_size, 64)
+        if len(idx) < min_needed:
+            idx = np.argsort(self.complexity_scores)[:min_needed]
+        return idx
+
+    # ------------------------------------------------------------------
+    # Epochs
+    # ------------------------------------------------------------------
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items() if k != "paths"}
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
-        """One pass over `train_loader` at the epoch's curriculum settings
+        """One pass at the epoch's curriculum settings over the tau_t subset
         (Stage 1 trains without quantization)."""
         stage = self.curriculum.get_stage(epoch)
         temp = self.curriculum.get_effective_temperature(epoch)
@@ -394,10 +621,21 @@ class Trainer:
         target_bits = self.curriculum.get_target_bits(epoch)
         quantize = stage >= 2
 
+        indices = self._curriculum_indices(tau_t)
+        if indices is None:
+            loader = self.train_loader
+        elif self.device_pipeline:
+            loader = self._dev_train.loader(self.batch_size, shuffle=True, indices=indices,
+                                            seed=self.seed + epoch)
+        else:
+            loader = DataLoader(self.train_dataset, self.batch_size, shuffle=True,
+                                indices=indices, seed=self.seed + epoch,
+                                num_workers=self.num_workers)
+
         agg: Dict[str, float] = {}
         hist = np.zeros(7, np.int64)
         n_batches = 0
-        for batch in self.train_loader:
+        for batch in loader:
             metrics = self.train_step(
                 self.optimizer, self._to_device(batch), temp, target_bits,
                 weights["bit_budget"], weights["smoothness"], weights["distillation"],
@@ -408,7 +646,8 @@ class Trainer:
             n_batches += 1
         out = {k: v / max(1, n_batches) for k, v in agg.items()}
         out.update(stage=stage, temperature=temp, tau=tau_t, target_bits=target_bits,
-                   quantize=float(quantize), bit_hist=hist.tolist())
+                   quantize=float(quantize), bit_hist=hist.tolist(), batches=n_batches,
+                   subset_size=None if indices is None else int(len(indices)))
         self._log_epoch(epoch, out, hist)
         return out
 
@@ -447,12 +686,39 @@ class Trainer:
                           f"loss averaged over {n} full batches", stacklevel=2)
         return total / max(1, n)
 
+    def evaluate(self, epoch: int) -> Dict[str, float]:
+        """Validation mAP@0.5 and mAP@[.5:.95] at the epoch's temperature and
+        quantize flag (eval-mode forward + decode + NMS on the device, the
+        matching on the host), and the mean avg_bits."""
+        stage = self.curriculum.get_stage(epoch)
+        temp = self.curriculum.get_effective_temperature(epoch)
+        quantize = stage >= 2
+        predictions, targets, bits = [], [], []
+        for batch in self.val_loader or ():
+            images = torch.as_tensor(batch["image"]).to(self.device)
+            b, s, c, v, avg_bits = self.eval_step(images, temp, quantize=quantize)
+            predictions.extend(detections_to_numpy(b, s, c, v))
+            targets.extend(extract_targets_per_image(batch))
+            bits.append(float(avg_bits))
+        res = compute_map(predictions, targets, 0.5)
+        res5095 = compute_map50_95(predictions, targets)
+        return {"map50": res["map"], "map50_95": res5095["map50_95"],
+                "avg_bits": float(np.mean(bits)) if bits else 0.0,
+                "quantized": float(quantize)}
+
+    # ------------------------------------------------------------------
+    # Checkpoints
+    # ------------------------------------------------------------------
+
     def save_checkpoint(self, name: str, epoch: int) -> Path:
-        """`output_dir/name`: params, batch_stats, quant_stats and buffers in
-        the flax layout (and the update count), plus `name.json` meta with the
-        resolved model-defining keys, so that the port's and the reference's
-        `Predictor` both serve it."""
-        payload = dict(to_jax_variables(self.model), step=int(self.optimizer.step_count))
+        """`output_dir/name` in the reference's layout: params, batch_stats,
+        quant_stats and buffers in the flax layout, `opt_state` in optax's
+        and the update count `step`; plus `name.json` meta with the resolved
+        model-defining keys, so that both packages' `Predictor` serve it and
+        both `Trainer.load_checkpoint` resume it."""
+        payload = dict(to_jax_variables(self.model),
+                       opt_state=self.optimizer.state_tree(self.model),
+                       step=int(self.optimizer.step_count))
         cfg = {k: v for k, v in self.config.items()
                if isinstance(v, (int, float, str, bool, dict, list))}
         m = self.model
@@ -470,3 +736,123 @@ class Trainer:
         path = self.output_dir / name
         save_checkpoint(path, payload, meta)
         return path
+
+    def load_checkpoint(self, path) -> None:
+        """Resume: parameters, BatchNorm statistics, quantizer statistics,
+        buffers, AdamW's moments and the update count from a checkpoint of
+        either package.  Raises ValueError when a leaf is missing."""
+        payload = load_checkpoint(path)
+        template = to_jax_variables(self.model)
+        for col in COLLECTIONS:
+            missing = _leaf_paths(template.get(col, {})) - _leaf_paths(payload.get(col, {}))
+            if missing:
+                raise ValueError(f"checkpoint {path} lacks {col}/{sorted(missing)[0]} "
+                                 f"and {len(missing) - 1} more leaves")
+        if "opt_state" not in payload:
+            raise ValueError(f"checkpoint {path} has no opt_state: it cannot be resumed")
+        load_jax_variables(self.model, {c: payload[c] for c in COLLECTIONS if c in payload})
+        self.optimizer.load_state_tree(self.model, payload["opt_state"])
+        if int(payload.get("step", self.optimizer.step_count)) != self.optimizer.step_count:
+            raise ValueError(f"checkpoint {path}: step {payload['step']} differs from the "
+                             f"optimizer's count {self.optimizer.step_count}")
+
+    # ------------------------------------------------------------------
+
+    def train(self) -> Dict:
+        """The training loop: the Stage-2 Eq.(8) refit and rescore,
+        validation loss every epoch, the budget controller's feedback, mAP
+        every `training.map_interval` epochs and at the end, `best.ckpt` at
+        the best quantized mAP@0.5 from Stage 3 on, `last.ckpt` every epoch,
+        `history.json` at the end.  Each history entry also holds the
+        epoch's wall seconds (`epoch_s`, of which `train_s` and `eval_s`)."""
+        t0 = time.time()
+        rescored = False
+        for epoch in range(self.epochs):
+            t_epoch = time.perf_counter()
+            self.curriculum.current_epoch = epoch
+            # Stage-2 boundary: the complexity MLP has trained through the
+            # warm-up; refit the Eq.(8) weights to it and re-sort, so that the
+            # tau_t filter of Stages 2-3 uses the learned ordering
+            if (not rescored and self.complexity_scores is not None
+                    and self.curriculum.get_stage(epoch) >= 2):
+                rescored = True
+                try:
+                    alpha = self.fit_feature_weights(max_batches=8)
+                    self.rescore_curriculum()
+                    print(f"[MCAQ] stage-2 Eq.8 alpha refit: {np.round(alpha, 4)}")
+                except Exception as e:  # the reference goes on without the refit
+                    print(f"[MCAQ][WARN] stage-2 rescore skipped: {type(e).__name__}: {e}")
+
+            t_train = time.perf_counter()
+            train_metrics = self.train_epoch(epoch)
+            train_metrics["train_s"] = time.perf_counter() - t_train
+            train_metrics["val_loss"] = self.compute_val_loss(epoch)
+
+            # closed-loop bit-budget controller (a no-op unless enabled):
+            # this epoch's mean bits trim the next epoch's bit_scale
+            if "avg_bits" in train_metrics:
+                scale = self.curriculum.update_budget_controller(
+                    train_metrics["avg_bits"], epoch)
+                train_metrics["bit_scale"] = scale
+                train_metrics["lambda1_boost"] = self.curriculum.lambda1_boost
+                if scale != 1.0 or self.curriculum.lambda1_boost > 1.0:
+                    print(f"          budget controller: bits="
+                          f"{train_metrics['avg_bits']:.2f} -> bit_scale {scale:.3f}, "
+                          f"lambda1 boost {self.curriculum.lambda1_boost:.2f}x")
+
+            eval_metrics = {}
+            if (epoch + 1) % self.map_interval == 0 or epoch == self.epochs - 1:
+                t_eval = time.perf_counter()
+                eval_metrics = self.evaluate(epoch)
+                eval_metrics["eval_s"] = time.perf_counter() - t_eval
+                if (self.curriculum.get_stage(epoch) >= 3
+                        and eval_metrics["map50"] > self.best_map):
+                    self.best_map = eval_metrics["map50"]
+                    self.save_checkpoint("best.ckpt", epoch)
+                print(f"          val mAP@0.5={eval_metrics['map50']:.4f} "
+                      f"mAP@0.5:0.95={eval_metrics['map50_95']:.4f} "
+                      f"bits={eval_metrics['avg_bits']:.2f}")
+
+            self.save_checkpoint("last.ckpt", epoch)
+            self.history.append({**train_metrics, **eval_metrics, "epoch": epoch,
+                                 "epoch_s": time.perf_counter() - t_epoch})
+
+        if self.best_map < 0:
+            print("[MCAQ] NOTE: training ended before Stage 3: best.ckpt was never "
+                  "written; last.ckpt holds the final weights.")
+        (self.output_dir / "history.json").write_text(
+            json.dumps(self.history, indent=2, default=float))
+        return {"best_map50": self.best_map, "epochs": self.epochs,
+                "wall_time_s": time.time() - t0}
+
+
+# ---------------------------------------------------------------------------
+# Command line
+# ---------------------------------------------------------------------------
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="MCAQ-YOLO training (PyTorch)")
+    parser.add_argument("--config", required=True, help="YAML config path")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; 'cpu' runs on the CPU)")
+    parser.add_argument("--output-dir", default=None)
+    parser.add_argument("--seed", type=int, default=None)
+    args = parser.parse_args(argv)
+    device = resolve_device(args.device)  # no CUDA: fail before reading anything
+
+    import yaml
+
+    with open(args.config) as f:
+        config = yaml.safe_load(f)
+    if args.output_dir:
+        config["output_dir"] = args.output_dir
+    if args.seed is not None:
+        config["seed"] = args.seed
+    results = Trainer(config, device=device).train()
+    print(json.dumps(results, indent=2, default=float))
+    return results
+
+
+if __name__ == "__main__":
+    main()

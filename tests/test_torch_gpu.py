@@ -16,7 +16,13 @@ channels, subnormal and huge x, a range that x overflows, bit maps on the
 rint ties); one call counts one launch.  The kernel moves 16 bytes of
 channels per thread and refuses a channel count or an alignment that does
 not fit that group, and its C entry refuses a launch geometry that does
-not fit the map."""
+not fit the map.
+
+Training from disk: the device-resident pipeline on the card equals its CPU
+result (clean bank and mosaic bitwise, HSV and affine within 1 level); the
+native letterbox builds and agrees with its float variant (and cv2's
+resize, where installed); `evaluate` and the validation loss launch the
+kernel three times per quantized forward and never in Stage 1."""
 
 import numpy as np
 import pytest
@@ -182,3 +188,102 @@ def test_train_step_cuda_matches_cpu(cuda):
         assert float(g.norm()) > 0, group
         err = float((g_gpu[group] - g).norm() / g.norm())
         assert err <= 1e-2, f"{group}: relative L2 error {err:.3g}"
+
+
+# ---------------------------------------------------------------------------
+# Training from disk: the device pipeline, the native letterbox, evaluate
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def disk_dataset(tmp_path_factory):
+    from mcaq_yolo_tpu_torch.data.dataset import make_synthetic_dataset_v3
+
+    root = tmp_path_factory.mktemp("disk")
+    make_synthetic_dataset_v3(str(root), n_images=8, img_size=64, n_val=4, seed=2)
+    return root
+
+
+@pytest.mark.gpu
+def test_device_pipeline_cuda_matches_cpu(cuda, disk_dataset):
+    """Clean bank and mosaic bitwise; HSV and affine within 1 level (the
+    batched products and the HSV arithmetic round differently on the card)."""
+    from mcaq_yolo_tpu_torch.data.dataset import YOLODataset
+    from mcaq_yolo_tpu_torch.data.device_pipeline import DevicePipeline, augment_batch
+
+    ds = YOLODataset(str(disk_dataset / "images" / "train"), 64, 16, augment=True,
+                     mosaic_p=0.5)
+    on_gpu, on_cpu = DevicePipeline(ds, device=cuda), DevicePipeline(ds, device="cpu")
+    assert on_gpu.bank.is_cuda and torch.equal(on_gpu.bank.cpu(), on_cpu.bank)
+    B = 8
+    idx4 = torch.tensor([[i, (i + 3) % 8, (i + 5) % 8, (i + 1) % 8] for i in range(B)])
+    gains = torch.from_numpy(np.random.default_rng(0).uniform(0.6, 1.4, (B, 4, 3))
+                             .astype(np.float32))
+    plans = {
+        "mosaic": (torch.ones(B, dtype=torch.bool), torch.zeros(B, 4, dtype=torch.bool),
+                   torch.ones(B), torch.zeros(B), torch.zeros(B), torch.zeros(B, dtype=torch.bool)),
+        "all": (torch.arange(B) % 2 == 0, torch.ones(B, 4, dtype=torch.bool),
+                torch.linspace(0.6, 1.4, B), torch.linspace(-6, 6, B), torch.linspace(5, -5, B),
+                torch.arange(B) % 3 == 0),
+    }
+    for name, (mosaic, hsv, s, tx, ty, flip) in plans.items():
+        plan = (idx4, mosaic, hsv, gains, s, tx, ty, flip)
+        cpu = augment_batch(on_cpu.bank, *plan)
+        gpu = augment_batch(on_gpu.bank, *(t.to(cuda) for t in plan)).cpu()
+        diff = (gpu.int() - cpu.int()).abs().max()
+        assert diff == 0 if name == "mosaic" else diff <= 1, (name, int(diff))
+    a = list(on_gpu.loader(4, shuffle=True, seed=3))
+    b = list(on_cpu.loader(4, shuffle=True, seed=3))
+    for x, y in zip(a, b):
+        assert x["image"].is_cuda and x["paths"] == y["paths"]
+        np.testing.assert_array_equal(x["gt_boxes"], y["gt_boxes"])
+        assert int((x["image"].cpu().int() - y["image"].int()).abs().max()) <= 1
+
+
+@pytest.mark.gpu
+def test_native_letterbox_builds_on_this_host(cuda):
+    """csrc/dataio.cpp builds with g++ here; its uint8 letterbox is within 1
+    level of its float one and of cv2's resize when cv2 is installed, and
+    the letterboxed batch normalizes on the card as on the host (within one
+    float32 ulp)."""
+    from mcaq_yolo_tpu_torch.data import dataset, native_loader
+    from mcaq_yolo_tpu_torch.models.yolo import normalize_image
+
+    rng = np.random.default_rng(1)
+    for h, w in ((480, 640), (720, 1280), (640, 640), (333, 500)):
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        u8, scale, pad = native_loader.letterbox_u8(img, 640)
+        f32, scale32, pad32 = native_loader.letterbox_f32(img, 640)
+        assert (scale, pad) == (scale32, pad32) and u8.shape == (640, 640, 3)
+        assert np.abs(u8 / 255.0 - f32).max() <= 0.5 / 255 + 1e-6
+        if dataset.HAS_CV2:
+            assert np.abs(u8.astype(int) - dataset.letterbox(img, 640)[0].astype(int)).max() <= 1
+        # the card divides through a reciprocal: within one float32 ulp of 1.0
+        on_card = normalize_image(torch.from_numpy(u8).to(cuda)).cpu().numpy()
+        np.testing.assert_allclose(on_card, normalize_image(torch.from_numpy(u8)).numpy(),
+                                   rtol=0, atol=1.2e-7)
+
+
+@pytest.mark.gpu
+def test_evaluate_launches_the_kernel_three_times_per_forward(cuda, disk_dataset, tmp_path):
+    from mcaq_yolo_tpu_torch.train import Trainer
+
+    config = {"epochs": 3, "batch_size": 2, "seed": 0, "output_dir": str(tmp_path / "out"),
+              "model": {"name": "yolov8n", "num_classes": 16},
+              "data": {"train": str(disk_dataset / "images" / "train"),
+                       "val": str(disk_dataset / "images" / "val"), "img_size": 64,
+                       "max_boxes": 16},
+              "curriculum": {"warmup_epochs": 0, "transition_epochs": 1},
+              "distillation": {"enabled": False}}
+    trainer = Trainer(config, device=cuda)
+    before = sq.spatial_quantize.launches
+    stage1 = trainer.evaluate(0)  # Stage 1: no quantization, no kernel
+    torch.cuda.synchronize()
+    assert sq.spatial_quantize.launches == before and stage1["quantized"] == 0.0
+    res = trainer.evaluate(2)
+    val_loss = trainer.compute_val_loss(2)
+    torch.cuda.synchronize()
+    forwards = len(trainer.val_loader) + 2  # evaluate's batches, then val loss's full ones
+    assert sq.spatial_quantize.launches - before == 3 * forwards
+    assert res["quantized"] == 1.0 and 2.0 <= res["avg_bits"] <= 8.0
+    assert np.isfinite(res["map50"]) and np.isfinite(val_loss)

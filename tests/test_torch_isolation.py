@@ -27,7 +27,9 @@ _PROBE = textwrap.dedent("""
               if n.split(".")[0] in BLOCKED and m is not None]
     assert not loaded, loaded
     for name in ("train", "calibrate", "models.losses", "core.curriculum",
-                 "batch_norm", "data.synthetic"):  # the training slice
+                 "batch_norm", "data.synthetic",  # the training slice
+                 "data.dataset", "data.native_loader", "data.device_pipeline",
+                 "core.morphology_cv2", "utils.evaluation", "utils.repro"):  # from disk
         assert "mcaq_yolo_tpu_torch." + name in names, name
 
     import torch
@@ -36,9 +38,14 @@ _PROBE = textwrap.dedent("""
         from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
         from mcaq_yolo_tpu_torch.models.yolo import YOLOv8
         from mcaq_yolo_tpu_torch.train import Trainer
+        from mcaq_yolo_tpu_torch.data.device_pipeline import DevicePipeline
+        from mcaq_yolo_tpu_torch.train import main
         for build in (lambda: MCAQYOLO(num_classes=4), lambda: YOLOv8(num_classes=4),
                       lambda: Predictor("no-such.ckpt", warmup=False),
-                      lambda: Trainer({"output_dir": "/nonexistent/never-made"}, [])):
+                      lambda: Trainer({"output_dir": "/nonexistent/never-made"}, []),
+                      lambda: Trainer({"output_dir": "/nonexistent/never-made"}),
+                      lambda: DevicePipeline(type("D", (), {"img_size": 64})()),
+                      lambda: main(["--config", "/nonexistent/never-read.yaml"])):
             try:
                 build()
             except RuntimeError as e:
@@ -54,7 +61,7 @@ def test_port_imports_without_jax_and_needs_an_explicit_cpu():
                        text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     n = int(r.stdout.split("ISOLATED")[1])
-    assert n >= 21  # every submodule was imported
+    assert n >= 28  # every submodule was imported
 
 
 def test_port_sources_name_no_jax_import():
