@@ -14,8 +14,9 @@ Phases (any failure exits non-zero and prints no result):
      soft mask, plus a non-multiple tile shape, yolov8m's P3 (C=192: 24
      groups of 8 channels, not a power of two), P3 at bs=256, and edge
      inputs (constant channels, subnormal and huge x, a frozen range that
-     x overflows, bit maps on the rint ties 1.5 .. 8.5) — bitwise
-     equality, one launch counted per call;
+     x overflows, bit maps on the rint ties 1.5 .. 8.5) and per-bit range
+     rows (7, C) at P3 / P4 / P5 and (7, 1) at P4 (mse calibration's
+     ranges) — bitwise equality, one launch counted per call;
   3. the deployed program: a seeded random MCAQ-YOLOv8n (nc=80, MLP bit
      mapper, softplus) written as a flax msgpack checkpoint + meta, served
      by `Predictor(model_path)` at 640 px in bfloat16 (pool 256, conf 0.25,
@@ -31,7 +32,9 @@ Phases (any failure exits non-zero and prints no result):
      behind a device sleep so the host's enqueue time is not counted),
      plus the kernel's host-paced time and host time per call; the
      deployed program's images/s at bs=32 and bs=256 (host included, as a
-     caller sees it); the morphology stage's share of a forward;
+     caller sees it), and its decode + NMS alone with the eager keep loop
+     and with the `while_loop` one that export traces; the morphology
+     stage's share of a forward;
   5. training: a seeded float32 YOLOv8n teacher written as a flax msgpack;
      `Trainer` (bf16 convolutions with float32 weights, KD on) over three
      one-batch epochs at 640 px, nc 80, bs 16, on seeded synthetic batches
@@ -68,7 +71,22 @@ Phases (any failure exits non-zero and prints no result):
      changes pixels, the affine moves boxes).  Timed (host clock, card name
      and power limit beside): dataset write, scoring, each epoch, the host
      loader and the device pipeline alone, training and evaluate images/s,
-     and the card's idle share over one epoch (torch.profiler).
+     and the card's idle share over one epoch (torch.profiler);
+  7. deploying a model trained elsewhere, yolov8n, nc 80, 640 px: (a) an
+     Ultralytics-layout YOLOv8n (tests/torch_yolo_fixture.py, seeded)
+     converted by `load_pretrained_into`, its C3/C4/C5 and raw maps in
+     float32 (TF32 off) against the fixture's forward; (b) for each
+     calibration mode (minmax, percentile, entropy, mse) `calibrate` over
+     4 batches of 32 images in bf16 (12 launches), freeze, save, and one
+     eval forward bitwise between the kernel and the plain version (3
+     launches; percentile at bs 64, mse through (7, C) rows); (c)
+     `Predictor` serves the minmax checkpoint (3 launches, bitwise); (d)
+     `export_inference` at bs 32 with NMS, saved, loaded, bitwise equal to
+     the eager program, 3 op nodes, 3 launches per call, both timed; (e)
+     the inference CLI on 16 PNGs in a process of its own, its launches
+     counted there (6 in the warm-up, 3 in its one chunk) and its wall time
+     split, its JSON against `predict_batch`; (f) `curriculum.score_backend:
+     cv2` scores 16 of phase 6's images equal to `score_image_cv2`.
 
 Output: JSON lines; before the last, the `{"kernels": [...]}` summary; the
 last line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -181,6 +199,14 @@ def quant_cases(device):
     def narrow(C):  # a frozen calibration range far inside x's
         return (torch.full((C,), -0.01, device=device), torch.full((C,), 0.01, device=device))
 
+    def per_bit(width):
+        """(7, width) ranges, one row per bit width (mse calibration's rows;
+        width 1 is expanded to (7, C) by the wrapper)."""
+        def rows(C):
+            return (-uniform((7, width), 7 * C + width, 0.5, 3.0),
+                    uniform((7, width), 7 * C + width + 1, 0.5, 3.0))
+        return rows
+
     cases = [(name, *case(32, h, c, t, seed=10 * i)) for i, (name, h, c, t) in enumerate(SCALES)]
     cases += [
         ("non-multiple", *case(4, 12, 24, 5, seed=40)),
@@ -194,6 +220,9 @@ def quant_cases(device):
         ("yolov8m-P3", *case(32, 80, 192, 10, seed=100)),  # C/8 = 24 groups
         ("bs256-P3", *case(256, 80, 64, 10, seed=110)),
     ]
+    cases += [(f"per-bit-rows-{name}", *case(32, h, c, t, seed=120 + 10 * i, rng=per_bit(c)))
+              for i, (name, h, c, t) in enumerate(SCALES)]
+    cases += [("per-bit-global-P4", *case(4, 40, 128, 10, seed=150, rng=per_bit(1)))]
     return cases
 
 
@@ -255,22 +284,30 @@ def serving_images(seed: int, count: int):
 
 
 def seeded_model(device, dtype, seed: int = 0):
-    """Random MCAQ-YOLOv8n (nc=80) from `seed`, with its bit mapper's
-    BatchNorm statistics taken from the model's own complexity maps on
-    seeded images and its output layer steepened, so that a random init
-    spreads tiles over several bit widths (an untrained monotone MLP is
-    nearly flat over the complexity range it sees)."""
+    """Random MCAQ-YOLOv8n (nc=80) from `seed`, spread over bit widths and
+    detections by `spread_model`."""
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+
+    model = MCAQYOLO(variant="yolov8n", num_classes=80, bit_mapping="mlp",
+                     monotone_param="softplus", morph_downsample=2, dtype=dtype,
+                     device=device, seed=seed)
+    return spread_model(model, device, dtype, seed)
+
+
+def spread_model(model, device, dtype, seed: int = 0):
+    """The bit mapper's BatchNorm statistics taken from the model's own
+    complexity maps on seeded images and its output layer steepened, so that
+    an untrained mapper spreads tiles over several bit widths (a random
+    monotone MLP is nearly flat over the complexity range it sees); each
+    class output scaled and biased so a few anchors per image clear conf
+    0.25.  In place; returns the model."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from mcaq_yolo_tpu_torch.data.dataset import letterbox
-    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
     from mcaq_yolo_tpu_torch.models.yolo import images_to_nchw
 
-    model = MCAQYOLO(variant="yolov8n", num_classes=80, bit_mapping="mlp",
-                     monotone_param="softplus", morph_downsample=2, dtype=dtype,
-                     device=device, seed=seed)
     x = torch.from_numpy(np.stack([letterbox(im, IMG)[0] for im in
                                    serving_images(seed, count=1)[:4]])).to(device)
     mapper = model.bit_mapper
@@ -366,25 +403,45 @@ def phase_deployed_program(device, dtype, workdir: Path):
     return pred, launches
 
 
-def backend_parity(pred, images, device, phase: str) -> None:
+def backend_parity(pred, images, device, phase: str) -> int:
     """One forward through the kernel and one through its plain version on
     the same letterboxed images: the raw maps must be bitwise equal."""
     import numpy as np
     import torch
 
     x = torch.from_numpy(np.stack([pred.preprocess(im)[0] for im in images])).to(device)
+    return model_parity(pred.model, x, phase)
+
+
+def model_parity(model, x, phase: str) -> int:
+    """`model`'s eval forward on x with quant_backend 'auto' (the kernel) and
+    'torch' (its plain version): raw maps bitwise equal, 3 launches in the
+    kernel's forward, none in the plain one.  Returns the kernel's launches."""
+    import torch
+
+    from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
+
     with torch.inference_mode():
-        raw_k, _ = pred.model(x)
-        pred.model.set_quant_backend("torch")
-        raw_p, _ = pred.model(x)
-        pred.model.set_quant_backend("auto")
+        before = sq.spatial_quantize.launches
+        raw_k, _ = model(x)
+        torch.cuda.synchronize()
+        launches = sq.spatial_quantize.launches - before
+        model.set_quant_backend("torch")
+        raw_p, _ = model(x)
+        model.set_quant_backend("auto")
+        plain_launches = sq.spatial_quantize.launches - before - launches
     same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                for a, b in zip(raw_k, raw_p))
     finite = all(bool(torch.isfinite(a).all()) for a in raw_k)
     emit({"phase": phase, "raw_maps_bitwise_equal": same, "finite": finite,
-          "shapes": [list(a.shape) for a in raw_k]})
+          "batch": int(x.shape[0]), "shapes": [list(a.shape) for a in raw_k],
+          "launches": {"kernel_forward": launches, "plain_forward": plain_launches}})
     check(same and finite, f"{phase}: raw maps differ between quant_backend 'auto' and "
                            "'torch'")
+    check(launches == 3 and plain_launches == 0,
+          f"{phase}: {launches} launches through the kernel, {plain_launches} through the "
+          "plain version (expected 3 and 0)")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -471,6 +528,7 @@ def phase_timings(pred, device, dtype):
               "program": "Predictor._predict_device (forward + decode + NMS, "
                          "pool 256, conf 0.25, max_det 300)",
               "peak_mem_GB": torch.cuda.max_memory_allocated(device) / 1e9})
+        nms_timing(pred, xb)
         del xb
 
     with torch.inference_mode():
@@ -488,6 +546,45 @@ def phase_timings(pred, device, dtype):
           "backbone_ms": bb_ms, "morphology_and_mapper_ms": morph_ms,
           "morphology_share": morph_ms / fwd_ms})
     return rows, throughput
+
+
+def nms_timing(pred, xb):
+    """Decode + NMS alone on the served program's raw maps of batch xb,
+    once with the eager keep loop (`nms.keep_fixed_point`, what eager
+    callers run) and once with the `while_loop` one that torch.export
+    traces, called eagerly in its place: the first call's seconds (the
+    `while_loop` compiles at its first call of a shape) and the median
+    time of a call (CUDA events, host included); keep results bitwise
+    equal."""
+    import torch
+
+    from mcaq_yolo_tpu_torch.models.yolo import decode_and_nms
+    from mcaq_yolo_tpu_torch.ops import nms
+    from mcaq_yolo_tpu_torch.utils.cuda_timing import cuda_ms
+
+    with torch.inference_mode():
+        raw, _ = pred.model(xb, temperature=pred.deploy_temperature, quantize=True)
+
+        def decode(k=0):
+            return decode_and_nms(raw, pred.num_classes, conf_threshold=pred.conf_threshold,
+                                  iou_threshold=pred.iou_threshold, max_det=pred.max_det,
+                                  pre_topk=pred.pre_topk)
+
+        eager_loop = nms.keep_fixed_point
+        row, outs = {"phase": "nms_timing", "batch": int(xb.shape[0])}, {}
+        for name, loop in (("python_loop", eager_loop),
+                           ("while_loop", nms.keep_fixed_point_traced)):
+            nms.keep_fixed_point = loop
+            try:
+                outs[name], first_s = _synced_s(decode)
+                row[name] = {"first_call_s": first_s, "ms": cuda_ms(decode)}
+            finally:
+                nms.keep_fixed_point = eager_loop
+    same = all(torch.equal(a, b) for a, b in zip(outs["python_loop"], outs["while_loop"]))
+    emit({**row, "bitwise_equal": same, "detections": int(outs["python_loop"][3].sum()),
+          "timing": "decode_and_nms alone on the program's raw maps; CUDA events around "
+                    "one call, host included, median of 21"})
+    check(same, "the while_loop keep differs from the eager loop's")
 
 
 # ---------------------------------------------------------------------------
@@ -1050,6 +1147,336 @@ def phase_train_from_disk(device, workdir: Path, gpu: str, img: int = IMG,
             "resumed_serving": serve_launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7
+# ---------------------------------------------------------------------------
+
+CALIB_BATCHES, CALIB_BATCH = 4, 32  # 128 calibration images (the reference's default: 1000)
+PERCENTILE_BATCH = 64  # P3 at 640 px: 26.2M elements, above torch.quantile's 2^24
+CLI_IMAGES = 16
+EXPORT_BATCH = 32
+CV2_IMAGES = 16  # of phase 6's 128: the exact cv2 metrics take ~0.33 s per 640 px image
+# The inference CLI's own process: `inference.main(argv)`, the entry of
+# `python -m mcaq_yolo_tpu_torch.inference`, with the kernel's launch count
+# zeroed just before it and read just after, and its wall time split into
+# the import, the Predictor's construction and warm-up, and predict_batch.
+# Prints that JSON as its last line.
+CLI_RUN = """\
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+from mcaq_yolo_tpu_torch import inference
+from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
+split = {"import_s": time.perf_counter() - t0}
+
+def timed(name, fn):
+    def run(self, *a, **k):
+        n, t = sq.spatial_quantize.launches, time.perf_counter()
+        out = fn(self, *a, **k)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        split[name + "_s"] = time.perf_counter() - t
+        split[name + "_launches"] = sq.spatial_quantize.launches - n
+        return out
+    return run
+
+P = inference.Predictor
+P.__init__ = timed("predictor", P.__init__)
+P._warmup = timed("warmup", P._warmup)
+P.predict_batch = timed("predict_batch", P.predict_batch)
+sq.spatial_quantize.launches = 0
+t = time.perf_counter()
+inference.main(sys.argv[1:])
+split["main_s"] = time.perf_counter() - t
+split["launches"] = sq.spatial_quantize.launches
+print(json.dumps(split))
+"""
+MODES = ("minmax", "percentile", "entropy", "mse")
+DEPLOY_META = {
+    "epoch": 0, "variant": "yolov8n", "num_classes": 80, "img_size": IMG,
+    "deploy_temperature": 1.0,
+    "config": {"quantization": {"min_bits": 2, "max_bits": 8, "target_bits": 4.0,
+                                "grid_size": 8, "bit_mapping": "mlp",
+                                "monotone_param": "softplus", "normalize_complexity": False},
+               "morphology": {"downsample": 2, "tile_engine": "lanes"}},
+}
+
+
+def _synced_s(fn):
+    """(result, seconds) of fn() on the host clock, the card synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_convert(device, gpu: str):
+    """7a: an Ultralytics-layout YOLOv8n (tests/torch_yolo_fixture.py, nc 80,
+    seeded, random BatchNorm statistics) converted by `load_pretrained_into`;
+    in float32 with TF32 off, the port's C3/C4/C5 and raw head maps
+    (quantize=False) against the fixture's own forward on one 640 px batch.
+    Returns the Ultralytics state_dict."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_yolo_fixture import TYOLOv8n, randomize_bn_stats, ultralytics_state_dict
+
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+    from mcaq_yolo_tpu_torch.models.weights_io import load_pretrained_into
+
+    torch.manual_seed(0)
+    fixture = TYOLOv8n(nc=80, variant="yolov8n")
+    with torch.no_grad():
+        randomize_bn_stats(fixture, torch.Generator().manual_seed(1))
+    fixture = fixture.eval().to(device)
+    sd = ultralytics_state_dict(fixture)
+    model, convert_s = _synced_s(lambda: load_pretrained_into(
+        MCAQYOLO(num_classes=80, morph_downsample=2, device=device, seed=0), sd))
+    g = torch.Generator(device=device).manual_seed(2)
+    x = torch.rand((8, IMG, IMG, 3), generator=g, device=device)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            nchw = x.permute(0, 3, 1, 2).contiguous()
+            ref_feats = fixture.backbone_features(nchw)
+            ref_maps = [m.permute(0, 2, 3, 1) for m in fixture(nchw)]
+            feats = model.backbone_features(x)
+            maps, _ = model(x, quantize=False)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    errs = {}
+    for name, a, b in [(f"C{i + 3}", f, r) for i, (f, r) in enumerate(zip(feats, ref_feats))] + \
+            [(f"raw_P{i + 3}", m, r) for i, (m, r) in enumerate(zip(maps, ref_maps))]:
+        d = (a.float() - b.float()).abs()
+        errs[name] = {"max_abs": float(d.max()), "max_ref": float(b.abs().max()),
+                      "max_rel": float((d / (b.abs() + 1e-3)).max())}
+    ok = all(e["max_abs"] <= 1e-3 * max(1.0, e["max_ref"]) for e in errs.values())
+    emit({"phase": "convert_ultralytics", "gpu": gpu, "batch": 8, "img_size": IMG,
+          "dtype": "float32, TF32 off", "convert_s": convert_s, "keys": len(sd), "errors": errs,
+          "tolerance": "max abs error <= 1e-3 x max(1, max |fixture|) per map"})
+    check(ok, f"converted YOLOv8n differs from the Ultralytics-layout forward: {errs}")
+    del fixture, model
+    return sd
+
+
+def phase_deploy(device, workdir: Path, gpu: str, sd, disk_dir: Path):
+    """7b-f: calibrate the converted model in each calibration mode, serve,
+    export, the inference CLI, and the cv2 scoring backend."""
+    import numpy as np
+    import torch
+
+    from mcaq_yolo_tpu_torch.calibrate import calibrate
+    from mcaq_yolo_tpu_torch.data.dataset import letterbox, read_image, write_image
+    from mcaq_yolo_tpu_torch.export import (
+        count_quant_nodes, export_inference, load_exported, make_inference_fn)
+    from mcaq_yolo_tpu_torch.inference import Predictor
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+    from mcaq_yolo_tpu_torch.models.weights_io import (
+        load_jax_variables, load_pretrained_into, to_jax_variables)
+    from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
+    from mcaq_yolo_tpu_torch.utils.checkpoint import save_checkpoint
+    from mcaq_yolo_tpu_torch.utils.cuda_timing import cuda_ms
+
+    dtype = torch.bfloat16
+    base = load_pretrained_into(MCAQYOLO(num_classes=80, morph_downsample=2, dtype=dtype,
+                                         device=device, seed=0), sd)
+    base = to_jax_variables(spread_model(base, device, dtype, seed=0))
+    g = torch.Generator(device=device).manual_seed(3)
+    calib = [{"image": torch.randint(0, 256, (CALIB_BATCH, IMG, IMG, 3), generator=g,
+                                     device=device, dtype=torch.uint8)}
+             for _ in range(CALIB_BATCHES)]
+    pool = serving_images(seed=9, count=PERCENTILE_BATCH // 8)
+    letterboxed = torch.from_numpy(np.stack([letterbox(im, IMG)[0] for im in pool])).to(device)
+    launches, ckpts = {}, {}
+    for mode in MODES:
+        model = MCAQYOLO(num_classes=80, calibration_mode=mode, morph_downsample=2,
+                         dtype=dtype, device=device, seed=0)
+        load_jax_variables(model, base)
+        torch.cuda.reset_peak_memory_stats(device)
+        sq.spatial_quantize.launches = 0
+        _, calib_s = _synced_s(lambda: calibrate(model, calib,
+                                                 num_images=CALIB_BATCHES * CALIB_BATCH))
+        n = sq.spatial_quantize.launches
+        peak = torch.cuda.max_memory_allocated(device) / 1e9
+        state = [(int(q.num_batches), bool(q.frozen)) for q in model.quantizers]
+        check(n == 3 * CALIB_BATCHES, f"{mode}: calibration launched the kernel {n} times "
+                                      f"(expected {3 * CALIB_BATCHES})")
+        check(state == [(CALIB_BATCHES, True)] * 3, f"{mode}: calibration state {state}")
+        if mode == "entropy":
+            check(all(abs(float(q.histogram.sum()) - 1.0) < 1e-3 for q in model.quantizers),
+                  "entropy: the EMA histogram does not sum to 1")
+        path = workdir / f"deploy_{mode}.ckpt"
+        save_checkpoint(path, to_jax_variables(model), DEPLOY_META)
+        ckpts[mode] = path
+        batch = PERCENTILE_BATCH if mode == "percentile" else 8
+        eval_launches = model_parity(model, letterboxed[:batch], f"calibrated_{mode}_parity")
+        if mode == "mse":
+            lo, hi = model.quantizers[0].calibration_range(
+                model.backbone_features(letterboxed[:8])[0].permute(0, 2, 3, 1))
+            check(tuple(lo.shape) == (7, 1), f"mse ranges {tuple(lo.shape)}, expected (7, 1)")
+        launches[f"calibration_{mode}"] = n
+        row = {"mode": mode, "calibration_s": calib_s, "images": CALIB_BATCHES * CALIB_BATCH,
+               "calibration_images_per_s": CALIB_BATCHES * CALIB_BATCH / calib_s,
+               "peak_mem_GB": peak, "launches": n, "eval_forward_batch": batch,
+               "eval_forward_launches": eval_launches}
+        emit({"phase": "calibrate", "gpu": gpu, **row})
+        del model
+    torch.cuda.empty_cache()
+
+    # c. serve the minmax checkpoint
+    pred = Predictor(str(ckpts["minmax"]), conf_threshold=0.25, iou_threshold=0.45,
+                     max_det=300, dtype=dtype, device=device)
+    images = serving_images(seed=10, count=1)
+    sq.spatial_quantize.launches = 0
+    results = pred.predict_batch(images, batch_size=8)
+    torch.cuda.synchronize()
+    launches["deployed_serving"] = sq.spatial_quantize.launches
+    check(launches["deployed_serving"] == 3, f"serving launched the kernel "
+                                             f"{launches['deployed_serving']} times (expected 3)")
+    for r in results:
+        check(2.0 <= r["avg_bits"] <= 8.0 and np.isfinite(r["complexity_map"]).all(),
+              "the converted model served a bad result")
+    emit({"phase": "deployed_serving", "gpu": gpu, "images": len(results),
+          "detections": sum(len(r["detections"]) for r in results),
+          "avg_bits": round(results[0]["avg_bits"], 4), "launches": launches["deployed_serving"]})
+    backend_parity(pred, images, device, "deployed_backend_parity")
+
+    # d. export, save, load in this process, against the eager program
+    model = pred.model
+    xb = torch.rand((EXPORT_BATCH, IMG, IMG, 3), generator=g, device=device)
+    exported, export_s = _synced_s(lambda: export_inference(model, batch_size=EXPORT_BATCH,
+                                                            img_size=IMG, with_nms=True))
+    nodes = count_quant_nodes(exported)
+    blob = workdir / "mcaq_yolo.pt2"
+    torch.export.save(exported, str(blob))
+    del exported
+    program, load_s = _synced_s(lambda: load_exported(blob))
+    eager = make_inference_fn(model)
+    with torch.no_grad():
+        ref = eager(xb)
+        sq.spatial_quantize.launches = 0
+        out = program(xb)
+        torch.cuda.synchronize()
+        launches["exported_program"] = sq.spatial_quantize.launches
+    same = [bool(torch.equal(a, b)) for a, b in zip(out, ref)]
+    with torch.no_grad():
+        loaded_ms = cuda_ms(lambda k: program(xb))
+        eager_ms = cuda_ms(lambda k: eager(xb))
+    emit({"phase": "export", "gpu": gpu, "batch": EXPORT_BATCH, "img_size": IMG, "nodes": nodes,
+          "export_s": export_s, "load_s": load_s, "artifact_MB": blob.stat().st_size / 1e6,
+          "bitwise_equal": dict(zip(("boxes", "scores", "classes", "valid", "avg_bits"), same)),
+          "detections": int(ref[3].sum()), "launches": launches["exported_program"],
+          "loaded_ms": loaded_ms, "eager_ms": eager_ms,
+          "loaded_images_per_s": EXPORT_BATCH / (loaded_ms * 1e-3),
+          "eager_images_per_s": EXPORT_BATCH / (eager_ms * 1e-3),
+          "timing": "CUDA events around one call, median of 21"})
+    check(nodes == 3, f"the exported graph holds {nodes} spatial_quantize nodes (expected 3)")
+    check(all(same), f"the loaded program differs from the eager one: {same}")
+    check(launches["exported_program"] == 3, "one call of the loaded program launched the "
+          f"kernel {launches['exported_program']} times (expected 3)")
+    del program, pred, model, xb
+
+    # e. the inference CLI on a directory, against predict_batch in this process
+    src = workdir / "cli_images"
+    src.mkdir()
+    rng = np.random.default_rng(11)
+    for i in range(CLI_IMAGES):
+        h, w = [(480, 640), (640, 480), (500, 500), (360, 640)][i % 4]
+        write_image(src / f"im{i:02d}.png", rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    out_json = workdir / "cli.json"
+    args = ["--model", str(ckpts["minmax"]), "--source", str(src), "--output", str(out_json)]
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", CLI_RUN, *args], cwd=ROOT, capture_output=True,
+                       text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"the inference CLI failed: {r.stderr[-2000:]}")
+    run = json.loads(r.stdout.strip().splitlines()[-1])
+    launches["inference_cli"] = run["launches"]
+    summary = json.loads(out_json.read_text())
+    files = sorted(str(p) for p in src.glob("*.png"))
+    # the CLI process runs with PyTorch's default cuDNN settings
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = True, False
+    try:
+        cli_pred = Predictor(str(ckpts["minmax"]), img_size=IMG, num_classes=80, device=device)
+        in_process = cli_pred.predict_batch([read_image(f) for f in files])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = flags
+    mism = [f for f, res in zip(files, in_process)
+            if summary["results"].get(f, {}).get("num_detections") != len(res["detections"])
+            or summary["results"][f]["avg_bits"] != res["avg_bits"]]
+    emit({"phase": "inference_cli", "gpu": gpu, "images": summary["num_images"],
+          "cli_wall_s": cli_s, "split": run, "launches": run["launches"],
+          "detections": sum(len(x["detections"]) for x in in_process),
+          "mismatched_images": mism,
+          "timing": "host clock: the process's wall, and in it the import, Predictor "
+                    "construction (its warm-up included), the warm-up, predict_batch, main()"})
+    check(summary["num_images"] == CLI_IMAGES and not mism,
+          f"the CLI's JSON disagrees with predict_batch on {mism}")
+    # one chunk of CLI_IMAGES (predict_batch's default batch) after the
+    # Predictor's two warm-up forwards, 3 launches each
+    check(run["warmup_launches"] == 6 and run["predict_batch_launches"] == 3
+          and run["launches"] == 9, f"the CLI's run launched the kernel {run} (expected "
+                                    "6 in the warm-up, 3 in predict_batch, 9 in all)")
+    del cli_pred
+    cmd = [sys.executable, "-m", "mcaq_yolo_tpu_torch.inference", *args[:2]]
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        emit({"phase": "inference_cli_visualize", "gpu": gpu,
+              "skipped": "matplotlib is not installed on this host"})
+    else:
+        vis = workdir / "cli_vis"
+        vis_cmd = cmd + ["--source", files[0], "--visualize", "--output-dir", str(vis)]
+        r = subprocess.run(vis_cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        made = sorted(p.name for p in vis.glob("*.png")) if vis.exists() else []
+        emit({"phase": "inference_cli_visualize", "gpu": gpu, "files": made})
+        check(r.returncode == 0 and made == ["bits.png", "complexity.png"],
+              f"the CLI's --visualize run failed: {r.stderr[-2000:]}")
+
+    # f. the exact cv2 scoring backend over the first CV2_IMAGES of phase 6's
+    # training images (copied with their labels into a split of their own)
+    import shutil
+
+    from mcaq_yolo_tpu_torch.core.morphology_cv2 import score_image_cv2
+    from mcaq_yolo_tpu_torch.train import Trainer
+
+    subset = workdir / "cv2_subset"
+    for kind in ("images", "labels"):
+        (subset / kind / "train").mkdir(parents=True)
+    for img in sorted((disk_dir / "images" / "train").iterdir())[:CV2_IMAGES]:
+        shutil.copy(img, subset / "images" / "train" / img.name)
+        label = disk_dir / "labels" / "train" / (img.stem + ".txt")
+        if label.exists():
+            shutil.copy(label, subset / "labels" / "train" / label.name)
+    config = {"epochs": 1, "batch_size": TRAIN_BATCH, "seed": 0,
+              "output_dir": str(workdir / "cv2_scores"),
+              "model": {"name": "yolov8n", "num_classes": 80},
+              "data": {"train": str(subset / "images" / "train"),
+                       "val": str(subset / "images" / "train"), "img_size": IMG,
+                       "max_boxes": 128, "cache": False},
+              "morphology": {"downsample": 2}, "distillation": {"enabled": False},
+              "curriculum": {"score_backend": "cv2"}}
+    trainer = Trainer(config, device=device)  # scores the split with the cv2 backend
+    scoring = trainer._scoring_dataset()
+    imgs = np.stack([scoring.get_item(i)["image"] for i in range(len(scoring))])
+    t0 = time.perf_counter()
+    direct = score_image_cv2(imgs)
+    score_s = time.perf_counter() - t0
+    equal = bool(np.array_equal(trainer.complexity_scores, direct.astype(np.float32)))
+    emit({"phase": "cv2_scoring", "gpu": gpu, "images": len(imgs), "scoring_s": score_s,
+          "images_per_s": len(imgs) / score_s, "equal": equal,
+          "timing": "host clock around score_image_cv2 on the split's letterboxed images",
+          "score_range": [float(direct.min()), float(direct.max())]})
+    check(equal and len(imgs) == CV2_IMAGES, "cv2 scores from the Trainer differ from "
+                                             "score_image_cv2")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1067,19 +1494,37 @@ def main() -> int:
     device = torch.device("cuda")
     dtype = torch.bfloat16
 
+    wall = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        wall[name] = round(time.perf_counter() - t0, 3)
+        t0 = time.perf_counter()
+
     gpu = phase_environment()
+    lap("1_environment")
     worst = phase_kernel_vs_plain(device)
+    lap("2_kernel_vs_plain")
     scratch = ROOT / "build"  # gitignored; the run writes nothing outside the checkout
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         pred, launches = phase_deployed_program(device, dtype, Path(tmp))
+        lap("3_deployed_program")
         rows, _ = phase_timings(pred, device, dtype)
         del pred
+        lap("4_timings")
         trainer, path_launches = phase_training(device, Path(tmp))
         phase_train_timing(trainer, device)
         del trainer
         phase_step_cuda_vs_cpu(device)
+        lap("5_training")
         path_launches.update(phase_train_from_disk(device, Path(tmp), gpu))
+        lap("6_train_from_disk")
+        sd = phase_convert(device, gpu)
+        path_launches.update(phase_deploy(device, Path(tmp), gpu, sd, Path(tmp) / "ds"))
+        lap("7_deploy")
+    emit({"phase": "wall_s", "gpu": gpu, **wall, "total": round(sum(wall.values()), 3)})
 
     emit({"kernels": [{
         "name": "spatial_quant", "route": "cuda", "source": KERNEL_SOURCE,

@@ -8,8 +8,11 @@ complexity MLP -> bit mapper -> spatial quantizer -> PAN neck -> Detect
 head -> decode + NMS), training from a YOLO-format dataset on disk (host
 and device-resident loaders, Eq.(8) curriculum scoring and sampling, train
 mode, fractional-bit compose, YOLOv8 loss with distillation, AdamW, mAP
-evaluation, checkpoints that either package resumes, the CLI), and
-post-training calibration.
+evaluation, checkpoints that either package resumes, the CLI), and the
+deployment of a model trained elsewhere: Ultralytics YOLOv8 weights,
+post-training calibration in all four modes, the inference CLI and a
+`torch.export` artifact that carries the kernel as the registered op
+`mcaq::spatial_quantize`.
 
 The one TPU kernel of the reference (the fused Pallas spatial quantizer,
 `mcaq_yolo_tpu/ops/pallas_quant.py`) is a hand-written CUDA kernel here
@@ -20,15 +23,19 @@ Layout
 ------
 core/       morphology metrics, Eq.(8) scores, bit allocation, quantization,
             curriculum, NNLS refit
-models/     YOLOv8 family, MCAQ assembly, losses, flax-tree weight bridge
-ops/        the CUDA spatial-quantize kernel + its plain version, NMS, builds
+models/     YOLOv8 family, MCAQ assembly, losses, flax-tree weight bridge,
+            Ultralytics converter
+ops/        the CUDA spatial-quantize kernel (a registered op) + its plain
+            version, NMS, builds
 data/       YOLO dataset, loader, generators, device pipeline, native
             letterbox binding, seeded synthetic batches
-utils/      flax msgpack checkpoints, mAP evaluation, seeding, CUDA timing
+utils/      flax msgpack checkpoints, mAP evaluation, seeding, CUDA timing,
+            model statistics, visualization
 batch_norm  BatchNorm with flax's training-mode statistics
-inference   Predictor
+inference   Predictor, CLI
 train       train step, optimizer, Trainer, CLI
 calibrate   post-training EMA calibration, then freeze
+export      torch.export of the serving program, save and load
 
 Entry points run on CUDA unless the caller passes device="cpu"; with no
 CUDA device and no explicit "cpu" they raise (`device.resolve_device`).

@@ -1,9 +1,13 @@
 """
 Post-training calibration (port of `mcaq_yolo_tpu/calibrate.py:24-63`;
 paper Sec IV-D): collect per-channel min/max EMA statistics (momentum
-0.99) over the calibration images with the quantizers in stats-update mode,
-then freeze them, so that inference uses a fixed scale and zero point per
-channel.  The passes run the eval quantizer, i.e. the CUDA kernel on CUDA.
+0.99; in 'entropy' mode also the EMA histogram) over the calibration images
+with the quantizers in stats-update mode, then freeze them, so that
+inference uses fixed statistics.  The calibration mode is the model's
+(`MCAQYOLO(calibration_mode=...)`), as in the reference.  The passes run the
+eval quantizer, i.e. the CUDA kernel on CUDA, three launches per forward in
+every mode; the explicit protocol for a model trained elsewhere, such as
+Ultralytics weights loaded with `models.weights_io.load_pretrained_into`.
 """
 
 from __future__ import annotations

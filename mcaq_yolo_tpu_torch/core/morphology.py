@@ -25,6 +25,7 @@ binarization variants (ROADMAP queue A).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -79,11 +80,16 @@ def _sep_filter(x: torch.Tensor, taps, mode: str) -> torch.Tensor:
     return res
 
 
+@functools.lru_cache(maxsize=None)
 def _gaussian_taps(k: int, sigma: float):
+    """The normalized float32 Gaussian taps as Python floats, computed once
+    per (k, sigma): the two the metrics use are computed at import (below
+    `adaptive_binarize`), so a forward traced by torch.export finds them as
+    constants."""
     g = torch.exp(-(torch.arange(k, dtype=torch.float32) - k // 2) ** 2
                   / (2 * sigma ** 2))
     g = g / g.sum()
-    return [float(v) for v in g]
+    return tuple(float(v) for v in g)
 
 
 def sobel(x: torch.Tensor):
@@ -202,6 +208,10 @@ def adaptive_binarize(tiles: torch.Tensor, block: int = 11, C: float = 2.0) -> t
     sigma = 0.3 * ((block - 1) * 0.5 - 1) + 0.8
     local_mean = _sep_filter(g255, _gaussian_taps(block, sigma), "edge")
     return (g255 > local_mean - C).to(tiles.dtype)
+
+
+_gaussian_taps(5, 1.0)                             # cv2compat Canny's blur
+_gaussian_taps(11, 0.3 * ((11 - 1) * 0.5 - 1) + 0.8)  # adaptive_binarize's default
 
 
 # ---------------------------------------------------------------------------

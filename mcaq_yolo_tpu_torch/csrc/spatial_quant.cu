@@ -9,10 +9,13 @@
 // Per element of an NHWC map x (B, H, W, C), bf16 or f32:
 //   b     = clip(rint(bit_map[b][floor(h*Ht/H)][floor(w*Wt/W)]), 2, 8)
 //   qmin  = -2^(b-1);  d = 2^b - 1;  qmax = qmin + d
-//   scale = max(x_max[c] - x_min[c], 1e-8) / d
+//   scale = max(x_max[r] - x_min[r], 1e-8) / d
 //   zp    = clip(qmin - x_min[c] / scale, qmin, qmax)
 //   out   = (clip(rint(x / scale + zp), qmin, qmax) - zp) * scale  [* mask]
-// in f32, output in x's dtype.
+// in f32, output in x's dtype.  r = c for one range per channel (C,), or
+// r = (b - 2) * C + c for per-bit rows (7, C), the reference's mse
+// calibration, whose 7-plane compose (quantization.py:439-449) quantizes each
+// tile with the row of its bit width: per element the same arithmetic.
 //
 // Tile rule: floor(h*Ht/H), the rule of the reference model path
 // (_compose_integer via upsample_nearest).  The Pallas kernel instead clamps
@@ -144,10 +147,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int phase) {
   }
 }
 
-// table[0][bi][c] = scale, table[1][bi][c] = zero point, bi = bits - 2
+// table[0][bi][c] = scale, table[1][bi][c] = zero point, bi = bits - 2, from
+// the range x_min / x_max[bi * range_stride + c] (range_stride 0: one range
+// per channel; C: one row per bit width)
 __global__ void __launch_bounds__(kTableThreads)
 qparams_kernel(const float* __restrict__ x_min, const float* __restrict__ x_max,
-               float* __restrict__ table, int C) {
+               float* __restrict__ table, int C, int range_stride) {
   // let the quantize kernel's blocks start now: they wait for this grid's
   // completion (griddepcontrol.wait) before they read the table, so the
   // trigger's place decides only how much of their set-up overlaps this
@@ -160,8 +165,9 @@ qparams_kernel(const float* __restrict__ x_min, const float* __restrict__ x_max,
     const float qmin = -half;
     const float d = __fsub_rn(__fmul_rn(2.0f, half), 1.0f);  // 2^b - 1, exact
     const float qmax = __fadd_rn(qmin, d);
-    const float lo = x_min[c];
-    const float range = fmaxf(__fsub_rn(x_max[c], lo), 1e-8f);
+    const int r = bi * range_stride + c;
+    const float lo = x_min[r];
+    const float range = fmaxf(__fsub_rn(x_max[r], lo), 1e-8f);
     const float scale = __fdiv_rn(range, d);
     table[i] = scale;
     table[kNumBits * C + i] = clipf(__fsub_rn(qmin, __fdiv_rn(lo, scale)), qmin, qmax);
@@ -251,11 +257,11 @@ spatial_quant_kernel(const T* __restrict__ x, const float* __restrict__ bit_map,
 template <typename T, int VEC>
 cudaError_t launch(const T* x, const float* bit_map, const float* x_min, const float* x_max,
                    const float* mask, float* table, T* out, int n_pix, int H, int W, int C,
-                   int Ht, int Wt, int pix_per_block, unsigned magic, int shift,
-                   cudaStream_t stream) {
+                   int Ht, int Wt, int range_stride, int pix_per_block, unsigned magic,
+                   int shift, cudaStream_t stream) {
   const int entries = kNumBits * C;
   qparams_kernel<<<(entries + kTableThreads - 1) / kTableThreads, kTableThreads, 0, stream>>>(
-      x_min, x_max, table, C);
+      x_min, x_max, table, C, range_stride);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -278,7 +284,9 @@ cudaError_t launch(const T* x, const float* bit_map, const float* x_min, const f
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Each thread moves 16-byte groups of
+// dtype: 0 = float32, 1 = bfloat16.  x_min / x_max hold C floats
+// (range_stride 0) or 7 rows of C, one per bit width 2..8 (range_stride C).
+// Each thread moves 16-byte groups of
 // channels (4 f32 / 8 bf16), so C must be a multiple of that group and x and
 // out 16-byte aligned.  table is scratch of 2 * 7 * C floats, 16-byte aligned.
 // The launch geometry comes from the wrapper (ops/spatial_quant.py:
@@ -291,9 +299,11 @@ cudaError_t launch(const T* x, const float* bit_map, const float* x_min, const f
 extern "C" int mcaq_spatial_quant(const void* x, const void* bit_map, const void* x_min,
                                   const void* x_max, const void* mask, void* table, void* out,
                                   int dtype, int B, int H, int W, int C, int Ht, int Wt,
-                                  int pix_per_block, unsigned magic, int shift, void* stream) {
+                                  int range_stride, int pix_per_block, unsigned magic,
+                                  int shift, void* stream) {
   const int vec = dtype == 0 ? 4 : 8;
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Ht <= 0 || Wt <= 0 || C % vec != 0 ||
+      (range_stride != 0 && range_stride != C) ||
       (dtype != 0 && dtype != 1) || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(table) % 16 != 0) {
@@ -324,11 +334,12 @@ extern "C" int mcaq_spatial_quant(const void* x, const void* bit_map, const void
   if (dtype == 0) {
     return (int)launch<float, 4>(static_cast<const float*>(x), bm, lo, hi, mk, tab,
                                  static_cast<float*>(out), (int)n_pix, H, W, C, Ht, Wt,
-                                 pix_per_block, magic, shift, s);
+                                 range_stride, pix_per_block, magic, shift, s);
   }
   return (int)launch<__nv_bfloat16, 8>(static_cast<const __nv_bfloat16*>(x), bm, lo, hi, mk,
                                        tab, static_cast<__nv_bfloat16*>(out), (int)n_pix, H,
-                                       W, C, Ht, Wt, pix_per_block, magic, shift, s);
+                                       W, C, Ht, Wt, range_stride, pix_per_block, magic,
+                                       shift, s);
 }
 
 // Blocks of the quantize kernel that fit on one SM at once (dtype as above),

@@ -1,30 +1,37 @@
 """
-Predictor: the deployed MCAQ-YOLO inference program (port of
-`mcaq_yolo_tpu/inference.py:31-371`).
+Predictor and its command line (port of `mcaq_yolo_tpu/inference.py`).
 
 Loads a flax msgpack checkpoint and its `.json` meta, letterboxes inputs on
 the host, runs forward (quantization on, deploy temperature) + decode +
 NMS on the device, and inverts the letterbox.  Results follow the
 reference's contract: detections, inference_time_ms, avg_bits and the
-P3-scale complexity / bit maps.  The command-line interface is not ported
-yet.
+P3-scale complexity / bit maps.
+
+    python -m mcaq_yolo_tpu_torch.inference --model ckpt --source DIR_OR_IMAGE \
+        [--output out.json] [--visualize --output-dir DIR] [--device cpu]
+
+runs on CUDA unless `--device` says otherwise.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import time
 import warnings
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .data.dataset import letterbox, unletterbox_boxes
+from .data.dataset import IMG_EXTS, letterbox, read_image, unletterbox_boxes
 from .device import DeviceLike, resolve_device
 from .models.mcaq_yolo import MCAQYOLO
 from .models.weights_io import COLLECTIONS, load_jax_variables, to_jax_variables
 from .models.yolo import decode_and_nms
-from .utils.checkpoint import load_checkpoint, load_meta
+from .utils.checkpoint import load_meta
+from .utils.model_utils import tolerant_restore
 
 
 def auto_pre_topk(max_det: int, conf_threshold: float = 0.25) -> int:
@@ -35,28 +42,15 @@ def auto_pre_topk(max_det: int, conf_threshold: float = 0.25) -> int:
     return 256 if conf_threshold >= 0.25 else 512
 
 
-def _overlay(template: Dict, src: Optional[Dict], path: str = "") -> Dict:
-    """Keys absent from the checkpoint, or with another shape, keep the
-    template's value, with a warning."""
-    out = dict(template)
-    for k, v in template.items():
-        if src is None or k not in src:
-            warnings.warn(f"[MCAQ] checkpoint missing {path}/{k}; keeping initialized value")
-        elif isinstance(v, dict):
-            out[k] = _overlay(v, src[k], f"{path}/{k}")
-        elif tuple(np.shape(src[k])) == tuple(v.shape):
-            out[k] = np.asarray(src[k], v.dtype)
-        else:
-            warnings.warn(f"[MCAQ] shape mismatch at {path}/{k} ({np.shape(src[k])} vs "
-                          f"{v.shape}); keeping initialized value")
-    return out
-
-
 class Predictor:
     """Single-image / batch MCAQ-YOLO inference on one device.
 
     `dtype` is the network compute dtype (torch.bfloat16 for the deployed
-    program); `device` defaults to CUDA and raises without one."""
+    program); `device` defaults to CUDA and raises without one.  Like the
+    reference's, it takes no calibration mode: it builds a 'minmax' model
+    and serves the checkpoint's frozen EMA statistics whatever mode
+    calibrated them (an entropy-mode histogram in the checkpoint is left
+    out)."""
 
     def __init__(self, model_path: str, num_classes: int = 80, variant: str = "yolov8n",
                  img_size: Optional[int] = None, conf_threshold: float = 0.25,
@@ -117,10 +111,9 @@ class Predictor:
             target_bits=target_bits, monotone_param=monotone_param,
             normalize_complexity=normalize_complexity,
             morph_downsample=morph_downsample, dtype=dtype, device=self.device)
-        payload = load_checkpoint(model_path)
         template = to_jax_variables(self.model)
-        load_jax_variables(self.model, {
-            c: _overlay(template[c], payload.get(c)) for c in COLLECTIONS if c in template})
+        restored = tolerant_restore(template, model_path)
+        load_jax_variables(self.model, {c: restored[c] for c in COLLECTIONS if c in template})
         if warmup:
             self._warmup()
 
@@ -185,23 +178,38 @@ class Predictor:
             "bit_map": np.asarray(bmap[j]),
         }
 
-    def predict(self, image: np.ndarray) -> Dict:
-        """image: HxWx3 uint8 RGB -> the reference's result contract."""
+    def predict(self, image: np.ndarray, visualize: bool = False,
+                output_dir: Optional[str] = None) -> Dict:
+        """image: HxWx3 uint8 RGB -> the reference's result contract; with
+        `visualize` and `output_dir`, also writes complexity.png and
+        bits.png there (matplotlib)."""
         img, scale, pad = self.preprocess(image)
         out, dt_ms = self._run(img[None])
         self._check_pool_headroom(out[-1])
-        return self._results(out, 0, scale, pad, image.shape[:2], dt_ms)
+        results = self._results(out, 0, scale, pad, image.shape[:2], dt_ms)
+        if visualize and output_dir:
+            from .utils import visualization as viz
 
-    def predict_batch(self, images: Sequence[np.ndarray], batch_size: int = 16) -> List[Dict]:
-        """Batched forwards over decoded HxWx3 uint8 images; the ragged tail
-        is padded by repeating the last image so every chunk has one shape."""
+            Path(output_dir).mkdir(parents=True, exist_ok=True)
+            viz.visualize_complexity_map(image, results["complexity_map"],
+                                         str(Path(output_dir) / "complexity.png"))
+            viz.visualize_bit_allocation(image, results["bit_map"],
+                                         str(Path(output_dir) / "bits.png"))
+        return results
+
+    def predict_batch(self, images: Sequence, batch_size: int = 16) -> List[Dict]:
+        """Batched forwards over HxWx3 uint8 RGB images or image paths (read
+        per chunk, so a large directory holds one chunk in memory); the
+        ragged tail is padded by repeating the last image so every chunk has
+        one shape."""
         n = len(images)
         if n == 0:
             return []
         batch_size = min(batch_size, n)
         results: List[Dict] = []
         for i in range(0, n, batch_size):
-            raw = list(images[i:i + batch_size])
+            raw = [im if isinstance(im, np.ndarray) else read_image(str(im))
+                   for im in images[i:i + batch_size]]
             chunk = [self.preprocess(im) for im in raw]
             k = len(chunk)
             stack = np.stack([c[0] for c in chunk])
@@ -213,3 +221,66 @@ class Predictor:
                 _, scale, pad = chunk[j]
                 results.append(self._results(out, j, scale, pad, raw[j].shape[:2], dt_ms / k))
         return results
+
+
+# ---------------------------------------------------------------------------
+# Command line (reference `inference.py:379-455`)
+# ---------------------------------------------------------------------------
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="MCAQ-YOLO inference (PyTorch)")
+    parser.add_argument("--model", required=True, help="checkpoint path (.ckpt)")
+    parser.add_argument("--source", required=True, help="image file or directory")
+    parser.add_argument("--conf", type=float, default=0.25)
+    parser.add_argument("--iou", type=float, default=0.45)
+    parser.add_argument("--max-det", type=int, default=1000)
+    parser.add_argument("--pre-topk", type=int, default=None,
+                        help="NMS candidate-pool size (default: auto from the conf gate)")
+    parser.add_argument("--img-size", type=int, default=640)
+    parser.add_argument("--num-classes", type=int, default=80)
+    parser.add_argument("--variant", default="yolov8n")
+    parser.add_argument("--output", default=None, help="JSON dump path")
+    parser.add_argument("--visualize", action="store_true")
+    parser.add_argument("--output-dir", default="outputs/infer")
+    parser.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    args = parser.parse_args(argv)
+
+    predictor = Predictor(
+        args.model, num_classes=args.num_classes, variant=args.variant,
+        img_size=args.img_size, conf_threshold=args.conf, iou_threshold=args.iou,
+        max_det=args.max_det, pre_topk=args.pre_topk, device=args.device)
+
+    src = Path(args.source)
+    if src.is_dir():
+        files = sorted(str(p) for p in src.rglob("*") if p.suffix.lower() in IMG_EXTS)
+        batch_results = predictor.predict_batch(files)  # paths: read per chunk
+        all_results = {}
+        for f, r in zip(files, batch_results):
+            all_results[f] = {"num_detections": len(r["detections"]),
+                              "inference_time_ms": r["inference_time_ms"],
+                              "avg_bits": r["avg_bits"]}
+            print(f"{f}: {len(r['detections'])} dets, {r['inference_time_ms']:.1f} ms, "
+                  f"{r['avg_bits']:.2f} bits")
+        summary = {
+            "num_images": len(files),
+            "mean_time_ms": float(np.mean([r["inference_time_ms"]
+                                           for r in all_results.values()]))
+            if all_results else 0.0,
+            "results": all_results,
+        }
+        if args.output:
+            Path(args.output).write_text(json.dumps(summary, indent=2))
+        print(json.dumps({k: v for k, v in summary.items() if k != "results"}))
+    else:
+        r = predictor.predict(read_image(str(src)), visualize=args.visualize,
+                              output_dir=args.output_dir)
+        dump = {"detections": r["detections"], "inference_time_ms": r["inference_time_ms"],
+                "avg_bits": r["avg_bits"]}
+        if args.output:
+            Path(args.output).write_text(json.dumps(dump, indent=2))
+        print(json.dumps(dump, indent=2))
+
+
+if __name__ == "__main__":
+    main()

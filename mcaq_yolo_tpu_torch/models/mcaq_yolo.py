@@ -116,7 +116,11 @@ class MCAQYOLO(nn.Module):
         """feat NCHW channels_last -> (feat_q NCHW, complexity, bit_map).
         Continuous bits with `training`; `quantize=False` (curriculum
         Stage 1) still runs the analyzer and the mapper."""
-        with torch.autocast(feat.device.type, enabled=False):
+        # the MCAQ math runs in float32 even under a bf16 autocast (training);
+        # without autocast no context is entered, so torch.export traces plain ops
+        autocast = torch.is_autocast_enabled(feat.device.type)
+        with torch.autocast(feat.device.type, enabled=False) if autocast \
+                else contextlib.nullcontext():
             f = feat.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
             complexity = self.complexity_analyzer(f)
             if self.normalize_complexity:
@@ -134,7 +138,8 @@ class MCAQYOLO(nn.Module):
         """`update_stats` (default: `training`): the quantizers take one EMA
         step of their running min/max (calibration passes True with
         training=False).  Without `training` no gradient is recorded."""
-        with contextlib.nullcontext() if training else torch.no_grad():
+        no_grad = not training and torch.is_grad_enabled()
+        with torch.no_grad() if no_grad else contextlib.nullcontext():
             feats = self.backbone(images_to_nchw(x, self.dtype), training)
             feats_q, complexity_maps, bit_maps = [], [], []
             for i, f in enumerate(feats):

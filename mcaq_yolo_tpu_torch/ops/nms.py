@@ -8,7 +8,8 @@ the (B, k, k) suppression matrix, starting from `alive`: its unique fixed
 point is the sequential greedy result (induction over score order), the
 same result the reference's fixed-point and block-sequential cores give.
 Each sweep is one batched reduction; the loop stops when no keep bit
-changes (the suppression chain depth, at most k sweeps).
+changes (the suppression chain depth, at most k sweeps, plus the sweep that
+finds no change).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch._higher_order_ops import while_loop
 
 
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -38,20 +40,49 @@ def iou_matrix(boxes: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
     return inter / (area[..., :, None] + area[..., None, :] - inter + eps)
 
 
-def greedy_keep(nms_boxes: torch.Tensor, alive: torch.Tensor,
-                iou_threshold: float) -> torch.Tensor:
-    """Exact sequential-greedy keep mask of score-sorted (B, k) candidates."""
-    k = nms_boxes.shape[-2]
-    idx = torch.arange(k, device=nms_boxes.device)
-    # suppress[b, j, i]: higher-scored candidate j would suppress i if kept
-    suppress = (iou_matrix(nms_boxes) > iou_threshold) & (idx[:, None] < idx[None, :])
+def keep_fixed_point(suppress: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """The keep sweeps as a Python loop that reads its stop condition on
+    the host: the eager formulation."""
     keep = alive
-    for _ in range(k):
+    for _ in range(suppress.shape[-1]):
         new = alive & ~(suppress & keep[..., :, None]).any(dim=-2)
         if torch.equal(new, keep):
             break
         keep = new
     return keep
+
+
+def keep_fixed_point_traced(suppress: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """The same sweeps in `while_loop` (the counterpart of the reference's
+    `lax.while_loop`, `ops/nms.py:56-84`): one loop node under torch.export.
+    Called eagerly, `while_loop` runs through torch.compile (seconds for the
+    first call of each shape), so only traced programs take it."""
+    k = suppress.shape[-1]
+
+    def sweep(i, keep, changed):
+        new = alive & ~(suppress & keep[..., :, None]).any(dim=-2)
+        return i + 1, new, (new != keep).any()
+
+    def more(i, keep, changed):
+        return changed & (i < k)
+
+    start = (torch.zeros((), dtype=torch.int64, device=alive.device), alive,
+             torch.ones((), dtype=torch.bool, device=alive.device))
+    return while_loop(more, sweep, start)[1]
+
+
+def greedy_keep(nms_boxes: torch.Tensor, alive: torch.Tensor,
+                iou_threshold: float) -> torch.Tensor:
+    """Exact sequential-greedy keep mask of score-sorted (B, k) candidates:
+    `keep_fixed_point` eagerly, `keep_fixed_point_traced` under torch.export
+    or torch.compile, so the deployed program exports with its NMS."""
+    k = nms_boxes.shape[-2]
+    idx = torch.arange(k, device=nms_boxes.device)
+    # suppress[b, j, i]: higher-scored candidate j would suppress i if kept
+    suppress = (iou_matrix(nms_boxes) > iou_threshold) & (idx[:, None] < idx[None, :])
+    if torch.compiler.is_compiling():
+        return keep_fixed_point_traced(suppress, alive)
+    return keep_fixed_point(suppress, alive)
 
 
 def nms_from_topk(top_boxes: torch.Tensor, top_scores: torch.Tensor,

@@ -8,16 +8,22 @@ function).  The kernel is `csrc/spatial_quant.cu`; see its source note for
 the design and what bounds it.
 
   spatial_quantize(x, bit_map, x_min, x_max, mask=None)
-      CUDA tensors -> launches the kernel (or raises: there is no fallback);
-      CPU tensors  -> the plain version.
+      Calls the registered op `torch.ops.mcaq.spatial_quantize`, so eager
+      code and a `torch.export` program run the same node: on CUDA tensors
+      the op launches the kernel (or raises: there is no fallback), on CPU
+      tensors it runs the plain version.
   spatial_quantize_torch(...)
       The same function in plain PyTorch, the arithmetic of the reference's
       `_compose_integer` (`core/quantization.py:421-460`) in the same
       literal order, so the kernel is held to it bitwise.
 
 x is (B, H, W, C) NHWC-contiguous, float32 or bfloat16; bit_map (B, Ht, Wt)
-float32; x_min / x_max (C,) float32; mask (B, H, W) or (B, H, W, 1)
-float32.  The kernel moves 16 bytes of channels per thread, so on CUDA C is
+float32; x_min / x_max (C,) float32, one range per channel, or (7, C) /
+(7, 1), one row per bit width 2..8 (the reference's mse calibration, whose
+7-plane compose, `quantization.py:439-449`, quantizes each tile with its
+bit width's row: per element the same arithmetic as `quantize_tensor`);
+mask (B, H, W) or (B, H, W, 1) float32.  The kernel moves 16 bytes of
+channels per thread, so on CUDA C is
 a multiple of 4 (float32) or 8 (bfloat16) and x is 16-byte aligned, as every
 YOLOv8 variant's C3/C4/C5 map is, and pixel indices fit 32 bits (B*H*W,
 H*Ht, W*Wt < 2^31); it raises otherwise.  Math in float32,
@@ -117,6 +123,9 @@ def spatial_quantize_torch(x: torch.Tensor, bit_map: torch.Tensor,
     qmin = -half
     d = 2.0 * half - 1.0
     qmax = qmin + d
+    if x_min.dim() == 2:  # per-bit rows: each pixel takes its bit width's row
+        row = (b_pix[..., 0] - MIN_BITS).to(torch.long)             # (B, H, W)
+        x_min, x_max = x_min[row], x_max[row]                       # (B, H, W, C or 1)
     x_range = torch.clamp(x_max - x_min, min=1e-8)
     scale = x_range / d
     zp = torch.clamp(qmin - x_min / scale, qmin, qmax)
@@ -150,8 +159,9 @@ def _check(x, bit_map, x_min, x_max, mask):
             raise ValueError(f"spatial_quantize: {name} on {t.device}, x on {dev}")
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"spatial_quantize: {name} must be contiguous float32")
-    if x_min.shape != (C,) or x_max.shape != (C,):
-        raise ValueError(f"spatial_quantize: x_min/x_max must be ({C},)")
+    if x_min.shape != x_max.shape or x_min.shape not in ((C,), (N_BITS, C)):
+        raise ValueError(f"spatial_quantize: x_min/x_max must be ({C},) or ({N_BITS}, {C}), "
+                         f"got {tuple(x_min.shape)} / {tuple(x_max.shape)}")
     _, Ht, Wt = bit_map.shape
     if max(B * H * W, H * Ht, W * Wt, N_BITS * C) >= _INT32_LIMIT:
         raise ValueError("spatial_quantize: the kernel indexes pixels and tiles in 32 bits; "
@@ -172,7 +182,7 @@ def _kernel():
         from .build import load_library
 
         fn = load_library("spatial_quant").mcaq_spatial_quant
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                        + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _kernel_fn = fn
@@ -196,15 +206,9 @@ def blocks_per_sm(dtype: torch.dtype) -> int:
     return n
 
 
-def spatial_quantize(x: torch.Tensor, bit_map: torch.Tensor, x_min: torch.Tensor,
-                     x_max: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The fused kernel on CUDA tensors; the plain version on CPU tensors.
-
-    `spatial_quantize.launches` counts kernel launches (and nothing else)."""
-    if x.device.type == "cpu":
-        return spatial_quantize_torch(x, bit_map, x_min, x_max, mask)
-    if x.device.type != "cuda":
-        raise ValueError(f"spatial_quantize: unsupported device {x.device}")
+def _launch(x: torch.Tensor, bit_map: torch.Tensor, x_min: torch.Tensor,
+            x_max: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The kernel on CUDA tensors: checks, launches, counts the launch."""
     B, H, W, C, Ht, Wt = _check(x, bit_map, x_min, x_max, mask)
     fn = _kernel()
     geo = launch_geometry(B, H, W, C, x.element_size())
@@ -222,8 +226,8 @@ def spatial_quantize(x: torch.Tensor, bit_map: torch.Tensor, x_min: torch.Tensor
     try:
         args = (x.data_ptr(), bit_map.data_ptr(), x_min.data_ptr(), x_max.data_ptr(),
                 mask.data_ptr() if mask is not None else None, table, out.data_ptr(),
-                _DTYPE_CODE[x.dtype], B, H, W, C, Ht, Wt, geo.pix_per_block, geo.magic,
-                geo.shift, stream)
+                _DTYPE_CODE[x.dtype], B, H, W, C, Ht, Wt, C if x_min.dim() == 2 else 0,
+                geo.pix_per_block, geo.magic, geo.shift, stream)
         if index == torch._C._cuda_getDevice():
             rc = fn(*args)
         else:
@@ -235,6 +239,39 @@ def spatial_quantize(x: torch.Tensor, bit_map: torch.Tensor, x_min: torch.Tensor
         raise RuntimeError(f"spatial_quant kernel launch failed: CUDA error {rc}")
     spatial_quantize.launches += 1
     return out
+
+
+# The kernel as a registered op: the plain version on the CPU, the kernel on
+# CUDA, an empty NHWC-contiguous tensor of x's shape and dtype while a program
+# is traced (torch.export), so an exported program carries the op as a node.
+@torch.library.custom_op("mcaq::spatial_quantize", mutates_args=(), device_types="cpu")
+def _spatial_quantize_op(x: torch.Tensor, bit_map: torch.Tensor, x_min: torch.Tensor,
+                         x_max: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    return spatial_quantize_torch(x, bit_map, x_min, x_max, mask)
+
+
+_spatial_quantize_op.register_kernel("cuda")(_launch)
+
+
+@_spatial_quantize_op.register_fake
+def _(x, bit_map, x_min, x_max, mask):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def spatial_quantize(x: torch.Tensor, bit_map: torch.Tensor, x_min: torch.Tensor,
+                     x_max: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fused kernel on CUDA tensors; the plain version on CPU tensors;
+    through the registered op `mcaq::spatial_quantize` either way.  Per-bit
+    ranges of shape (7, 1) are expanded to a contiguous (7, C) here.
+
+    `spatial_quantize.launches` counts kernel launches (and nothing else)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"spatial_quantize: unsupported device {x.device}")
+    if x_min.dim() == 2 and x_min.shape[1] == 1:
+        C = x.shape[-1]
+        x_min = x_min.expand(N_BITS, C).contiguous()
+        x_max = x_max.expand(N_BITS, C).contiguous()
+    return torch.ops.mcaq.spatial_quantize(x, bit_map, x_min, x_max, mask)
 
 
 spatial_quantize.launches = 0

@@ -31,8 +31,7 @@ optimizer, the eval and validation-loss steps, the teacher export, the
     bfloat16 under autocast on CUDA, with float32 weights; the MCAQ math,
     the teacher and the losses stay float32.
 
-Not ported yet: FSDP (`training.parallel`), the exact cv2 scoring backend
-(`curriculum.score_backend: cv2` raises).
+Not ported yet: FSDP (`training.parallel`).
 """
 
 from __future__ import annotations
@@ -526,21 +525,19 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _score_backend(self) -> str:
-        backend = str(self.curriculum_cfg.get("score_backend", "train"))
-        if backend == "cv2":
-            raise NotImplementedError(
-                "curriculum.score_backend 'cv2' (the exact OpenCV metric backend) is not "
-                "ported yet; use 'train' (Eq.8 with the training metrics) or 'edge'")
-        return backend
+        return str(self.curriculum_cfg.get("score_backend", "train"))
 
     def _scoring_dataset(self) -> YOLODataset:
         return YOLODataset(self.train_dataset.img_dir, self.img_size,
                            self.train_dataset.max_boxes, augment=False)
 
     def _score_fn(self):
-        """The deterministic per-image Eq.(8) scorer with the analyzer's phi
-        and its (refit) `feature_weights`: uint8 images -> (B,) scores."""
-        self._score_backend()
+        """The deterministic per-image Eq.(8) scorer: uint8 images -> (B,)
+        scores.  'cv2': the exact OpenCV metrics on the host (uniform
+        weights); otherwise the analyzer's phi with its (refit)
+        `feature_weights`."""
+        if self._score_backend() == "cv2":
+            return lambda images: morphology_cv2.score_image_cv2(np.asarray(images))
 
         def fn(images):
             x = torch.as_tensor(images).to(self.device)
@@ -552,9 +549,14 @@ class Trainer:
         """Offline Algorithm-3 scoring of the training images, without
         augmentation, cached with a fingerprint in `output_dir` ('train':
         Eq.8 with the uniform initial weights, a pure function of the image;
-        'edge': the model-free edge density)."""
+        'cv2': the same with the exact OpenCV metrics, on the host; 'edge':
+        the model-free edge density)."""
         backend = self._score_backend()
         cache = str(self.output_dir / "complexity_scores.npy") if use_cache else None
+        if backend == "cv2":
+            return compute_dataset_complexity(self._scoring_dataset(), self._score_fn(),
+                                              cache_path=cache, backend="cv2",
+                                              img_size=self.img_size)
         if backend == "edge":
             return compute_dataset_complexity(self._scoring_dataset(), None, cache_path=cache,
                                               backend="edge", img_size=self.img_size)

@@ -13,7 +13,9 @@ bfloat16, with and without the soft mask, on exact tile multiples, on a
 non-multiple shape (tile floor(h * Ht / H)), on yolov8m's P3 width (24
 groups of 8 channels, not a power of two) and on edge inputs (constant
 channels, subnormal and huge x, a range that x overflows, bit maps on the
-rint ties); one call counts one launch.  The kernel moves 16 bytes of
+rint ties), and with per-bit range rows (7, C) / (7, 1); one call counts
+one launch; the exported serving program launches the kernel three times
+per call.  The kernel moves 16 bytes of
 channels per thread and refuses a channel count or an alignment that does
 not fit that group, and its C entry refuses a launch geometry that does
 not fit the map.
@@ -136,8 +138,8 @@ def test_kernel_entry_refuses_a_wrong_geometry(cuda):
 
     def call(ppb=geo.pix_per_block, magic=geo.magic, shift=geo.shift):
         return fn(x.data_ptr(), bit_map.data_ptr(), lo.data_ptr(), hi.data_ptr(), None,
-                  table.data_ptr(), out.data_ptr(), 0, B, H, W, C, Ht, Wt, ppb, magic,
-                  shift, stream)
+                  table.data_ptr(), out.data_ptr(), 0, B, H, W, C, Ht, Wt, 0, ppb,
+                  magic, shift, stream)
 
     assert call() == 0
     torch.cuda.synchronize()
@@ -287,3 +289,71 @@ def test_evaluate_launches_the_kernel_three_times_per_forward(cuda, disk_dataset
     assert sq.spatial_quantize.launches - before == 3 * forwards
     assert res["quantized"] == 1.0 and 2.0 <= res["avg_bits"] <= 8.0
     assert np.isfinite(res["map50"]) and np.isfinite(val_loss)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("shape,width", [
+    ((4, 80, 80, 64, 10, 10), "C"),     # P3, one row of C ranges per bit width
+    ((4, 40, 40, 128, 10, 10), "C"),    # P4
+    ((4, 20, 20, 256, 5, 5), "C"),      # P5
+    ((3, 12, 12, 24, 5, 5), "C"),       # non-multiple tile grid
+    ((4, 40, 40, 128, 10, 10), 1),      # mse calibration's (7, 1), expanded by the wrapper
+])
+def test_kernel_per_bit_rows_bitwise_equal_plain(cuda, dtype, with_mask, shape, width):
+    """Per-bit ranges (7, C): the table kernel reads row b - 2 for bit
+    width b (range stride C); bitwise equal to the plain version."""
+    B, H, W, C, Ht, Wt = shape
+    x, bit_map, mask = _inputs(cuda, B, H, W, C, Ht, Wt, seed=7 * C + H)
+    x = x.to(dtype)
+    g = torch.Generator(device=cuda).manual_seed(C)
+    w = C if width == "C" else 1
+    lo = -(torch.rand((7, w), generator=g, device=cuda) * 2.5 + 0.5)
+    hi = torch.rand((7, w), generator=g, device=cuda) * 2.5 + 0.5
+    m = mask if with_mask else None
+    before = sq.spatial_quantize.launches
+    out = sq.spatial_quantize(x, bit_map, lo, hi, m)
+    ref = sq.spatial_quantize_torch(x, bit_map, lo, hi, m)
+    torch.cuda.synchronize()
+    assert sq.spatial_quantize.launches == before + 1
+    ibits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(ibits), ref.view(ibits))
+
+
+@pytest.mark.gpu
+def test_exported_program_launches_the_kernel(cuda, tmp_path):
+    """The exported serving program (64 px, bs 2) holds the op three times;
+    loaded, one call launches the kernel three times and equals the eager
+    program bitwise; an mse-calibrated model's eval forward goes through
+    the kernel too (per-bit rows), bitwise equal to the plain version."""
+    from mcaq_yolo_tpu_torch.calibrate import calibrate
+    from mcaq_yolo_tpu_torch.export import (count_quant_nodes, load_exported,
+                                            make_inference_fn, save_exported)
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand((2, 64, 64, 3), generator=g, device=cuda)
+    model = MCAQYOLO(num_classes=4, morph_downsample=2, device=cuda, seed=1)
+    paths = save_exported(model, tmp_path, batch_size=2, img_size=64)
+    assert count_quant_nodes(torch.export.load(paths["serialized"])) == 3
+    program = load_exported(paths["serialized"])
+    with torch.no_grad():
+        ref = make_inference_fn(model)(x)
+        before = sq.spatial_quantize.launches
+        out = program(x)
+        torch.cuda.synchronize()
+    assert sq.spatial_quantize.launches - before == 3
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+    mse = MCAQYOLO(num_classes=4, calibration_mode="mse", morph_downsample=2, device=cuda,
+                   seed=1)
+    before = sq.spatial_quantize.launches
+    calibrate(mse, [{"image": (x * 255).to(torch.uint8)}] * 2, num_images=4)
+    with torch.no_grad():
+        raw_k, _ = mse(x)
+        mse.set_quant_backend("torch")
+        raw_p, _ = mse(x)
+    torch.cuda.synchronize()
+    assert sq.spatial_quantize.launches - before == 3 * 3
+    assert all(torch.equal(a, b) for a, b in zip(raw_k, raw_p))

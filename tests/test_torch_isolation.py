@@ -29,8 +29,11 @@ _PROBE = textwrap.dedent("""
     for name in ("train", "calibrate", "models.losses", "core.curriculum",
                  "batch_norm", "data.synthetic",  # the training slice
                  "data.dataset", "data.native_loader", "data.device_pipeline",
-                 "core.morphology_cv2", "utils.evaluation", "utils.repro"):  # from disk
+                 "core.morphology_cv2", "utils.evaluation", "utils.repro",  # from disk
+                 "export", "utils.model_utils", "utils.visualization"):  # deployment
         assert "mcaq_yolo_tpu_torch." + name in names, name
+    import torch
+    assert hasattr(torch.ops.mcaq, "spatial_quantize")  # registered at import
 
     import torch
     if not torch.cuda.is_available():
@@ -40,12 +43,14 @@ _PROBE = textwrap.dedent("""
         from mcaq_yolo_tpu_torch.train import Trainer
         from mcaq_yolo_tpu_torch.data.device_pipeline import DevicePipeline
         from mcaq_yolo_tpu_torch.train import main
+        from mcaq_yolo_tpu_torch.inference import main as infer_main
         for build in (lambda: MCAQYOLO(num_classes=4), lambda: YOLOv8(num_classes=4),
                       lambda: Predictor("no-such.ckpt", warmup=False),
                       lambda: Trainer({"output_dir": "/nonexistent/never-made"}, []),
                       lambda: Trainer({"output_dir": "/nonexistent/never-made"}),
                       lambda: DevicePipeline(type("D", (), {"img_size": 64})()),
-                      lambda: main(["--config", "/nonexistent/never-read.yaml"])):
+                      lambda: main(["--config", "/nonexistent/never-read.yaml"]),
+                      lambda: infer_main(["--model", "no-such.ckpt", "--source", "."])):
             try:
                 build()
             except RuntimeError as e:

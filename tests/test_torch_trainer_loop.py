@@ -270,7 +270,21 @@ def test_cli_trains_on_the_cpu(env, tmp_path):
 
 
 def test_cv2_score_backend_is_not_ported_yet(env, tmp_path):
+    """The name predates the port of the cv2 backend; what it holds now:
+    `curriculum.score_backend: cv2` scores the training images with the
+    exact OpenCV metrics, equal bitwise to the JAX package's
+    `score_image_cv2` on the same images, cached with backend "cv2"."""
+    import json
+
+    from mcaq_yolo_tpu.core.morphology_cv2 import score_image_cv2
+
     config = _config(env["yaml"], tmp_path)
     config["curriculum"] = dict(config["curriculum"], score_backend="cv2")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Trainer(config, device="cpu")
+    port = Trainer(config, device="cpu")
+    images = np.stack([port._scoring_dataset().get_item(i)["image"]
+                       for i in range(len(port.train_dataset))])
+    ref = score_image_cv2(images)  # float64; the scores cache holds float32
+    np.testing.assert_array_equal(port.complexity_scores, ref.astype(np.float32))
+    meta = json.loads((tmp_path / "complexity_scores.npy.meta.json").read_text())
+    assert meta["backend"] == "cv2"
+    np.testing.assert_array_equal(port._score_fn()(images[:4]), ref[:4])
