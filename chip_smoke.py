@@ -86,7 +86,19 @@ Phases (any failure exits non-zero and prints no result):
      the inference CLI on 16 PNGs in a process of its own, its launches
      counted there (6 in the warm-up, 3 in its one chunk) and its wall time
      split, its JSON against `predict_batch`; (f) `curriculum.score_backend:
-     cv2` scores 16 of phase 6's images equal to `score_image_cv2`.
+     cv2` scores 16 of phase 6's images equal to `score_image_cv2`;
+  8. the evidence scripts on phase 6's best.ckpt and its 32-image val
+     split at 640 px: (a) `apply_external_bit_maps` with the model's own
+     bit maps equals the normal quantized forward bitwise, in 3 launches;
+     (b) permuted and constant maps give bitwise-equal raw maps through the
+     kernel (3 launches) and the plain version (0); (c) `m3_permutation`,
+     `m4_variation_gain` (200 bootstrap reps, no figure),
+     `downsample_fidelity` and `pretopk_equivalence` end with finite
+     numbers, each with 3 launches per quantized forward and the forwards
+     its batches imply; (d) `batched_nms` over `decode_predictions` equals
+     `decode_and_nms` at the same gate and pool (conf 0.001 and 1e-7, pool
+     1024: the same valid set and classes, boxes and scores within 1e-6
+     relative), both timed.
 
 Output: JSON lines; before the last, the `{"kernels": [...]}` summary; the
 last line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1477,6 +1489,177 @@ def phase_deploy(device, workdir: Path, gpu: str, sd, disk_dir: Path):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 8
+# ---------------------------------------------------------------------------
+
+EVIDENCE_SCRIPTS = (  # name, batch size, quantized forwards per batch
+    ("m3_permutation", 8, 4), ("m4_variation_gain", 4, 2),
+    ("downsample_fidelity", 16, 4), ("pretopk_equivalence", 16, 1))
+
+
+def _counting_forwards():
+    """Patch MCAQYOLO so that every quantized eval forward is counted (the
+    scripts build their models inside `run`); returns (counter, undo)."""
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+
+    counter, orig = [0], MCAQYOLO._forward
+
+    def _forward(self, x, temperature, quantize, training, *rest):
+        counter[0] += int(quantize and not training)
+        return orig(self, x, temperature, quantize, training, *rest)
+
+    MCAQYOLO._forward = _forward
+    return counter, lambda: setattr(MCAQYOLO, "_forward", orig)
+
+
+def phase_evidence_scripts(device, workdir: Path, gpu: str):
+    """The evidence scripts on phase 6's best.ckpt and its 32-image val split
+    (640 px): (a) `apply_external_bit_maps` with the model's own maps is the
+    normal quantized forward, bitwise, in 3 launches; (b) permuted and
+    constant maps give bitwise-equal raw maps through the kernel and the
+    plain version; (c) M3, M4 (200 bootstrap reps), downsample_fidelity and
+    pretopk_equivalence end with finite numbers, each with 3 launches per
+    quantized forward and the forwards its batches imply; (d) `batched_nms`
+    on one decoded batch equals `decode_and_nms` at the same gate and pool
+    (the same valid set and classes, boxes and scores within 1e-6
+    relative), both timed."""
+    import numpy as np
+    import torch
+
+    from mcaq_yolo_tpu_torch.data.dataset import YOLODataset
+    from mcaq_yolo_tpu_torch.inference import Predictor
+    from mcaq_yolo_tpu_torch.models.yolo import decode_and_nms, decode_predictions
+    from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
+    from mcaq_yolo_tpu_torch.ops.nms import batched_nms
+    from mcaq_yolo_tpu_torch.scripts import (downsample_fidelity, m3_permutation,
+                                             m4_variation_gain, pretopk_equivalence)
+    from mcaq_yolo_tpu_torch.utils.cuda_timing import cuda_ms
+
+    ckpt = str(workdir / "disk" / "best.ckpt")
+    data_yaml = str(workdir / "ds" / "dataset.yaml")
+    pred = Predictor(ckpt, warmup=False, device=device)
+    model, nc = pred.model, pred.num_classes
+    val = YOLODataset(str(workdir / "ds" / "images" / "val"), IMG)
+    x = torch.from_numpy(np.stack([val.get_item(i)["image"] for i in range(8)])).to(device)
+
+    def launched(fn):
+        torch.cuda.synchronize()
+        sq.spatial_quantize.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, sq.spatial_quantize.launches
+
+    with torch.inference_mode():
+        raw, aux = model(x, temperature=pred.deploy_temperature, quantize=True)
+        own = aux["bit_map"]
+        ext, n_own = launched(lambda: m3_permutation.apply_external_bit_maps(model, x, own))
+        check(n_own == 3, f"the external-map forward launched {n_own} times (expected 3)")
+        check(all(torch.equal(a, b) for a, b in zip(raw, ext)),
+              "apply_external_bit_maps with the model's own maps differs from its forward")
+
+        maps = {"permuted": [torch.as_tensor(np.stack([
+                    m3_permutation.permute_bit_map(m[i], "permuted", i)
+                    for i in range(m.shape[0])]), device=device)
+                    for m in (b.cpu().numpy() for b in own)],
+                "constant": [torch.full_like(b, 3.0) for b in own]}
+        arms = {}
+        for name, mp in maps.items():
+            out, n_kernel = launched(lambda: m3_permutation.apply_external_bit_maps(model, x, mp))
+            model.set_quant_backend("torch")
+            try:
+                plain, n_plain = launched(
+                    lambda: m3_permutation.apply_external_bit_maps(model, x, mp))
+            finally:
+                model.set_quant_backend("auto")
+            same = all(torch.equal(a, b) for a, b in zip(out, plain))
+            arms[name] = {"launches": n_kernel, "plain_launches": n_plain, "bitwise": same,
+                          "changed_raw_maps": not all(torch.equal(a, b)
+                                                      for a, b in zip(out, raw))}
+            check(same and n_kernel == 3 and n_plain == 0,
+                  f"{name} maps: kernel vs plain {arms[name]}")
+
+        # (d) the separate NMS path against the fused one, same gate and pool
+        nms_rows = {}
+        for conf in (0.001, 1e-7):
+            kw = dict(conf_threshold=conf, iou_threshold=0.65, max_det=300, pre_topk=1024)
+
+            def separate(k=0):
+                boxes, scores, _, _ = decode_predictions(raw, nc)
+                return batched_nms(boxes, scores, **kw)
+
+            def fused(k=0):
+                return decode_and_nms(raw, nc, **kw)
+
+            a, b = separate(), fused()
+            v = a[3]  # the padding rows past the survivors hold whatever sorted there
+            same = torch.equal(v, b[3]) and torch.equal(a[2][v], b[2][v])
+            # sigmoid of (B, A, nc) against sigmoid of the (B, k) winners: the
+            # card may round them differently by an ulp
+            diff = {k: float((a[i][v] - b[i][v]).abs().max()) if v.any() else 0.0
+                    for i, k in ((0, "boxes"), (1, "scores"))}
+            same = same and all(torch.allclose(a[i][v], b[i][v], rtol=1e-6, atol=0)
+                                for i in (0, 1))
+            nms_rows[str(conf)] = {"equal": same, "max_abs_diff": diff,
+                                   "detections": int(a[3].sum()),
+                                   "batched_nms_ms": cuda_ms(separate, reps=11),
+                                   "decode_and_nms_ms": cuda_ms(fused, reps=11)}
+            check(same, f"batched_nms differs from decode_and_nms at conf {conf}")
+    del pred, model
+    emit({"phase": "external_bit_maps", "gpu": gpu, "batch": int(x.shape[0]),
+          "own_maps": {"launches": n_own, "bitwise_equal_forward": True}, **arms,
+          "nms_paths": nms_rows,
+          "timing": "decode + NMS alone on one batch's raw maps, CUDA events around one "
+                    "call, host included, median of 11"})
+
+    # (c) the scripts, each counted: launches = 3 x the quantized forwards
+    n_val = len(list((workdir / "ds" / "images" / "val").iterdir()))
+    runs = {
+        "m3_permutation": lambda bs: m3_permutation.run(
+            ckpt, data_yaml, IMG, nc, batch_size=bs, device=device),
+        "m4_variation_gain": lambda bs: m4_variation_gain.run(
+            ckpt, data_yaml, IMG, nc, batch_size=bs, reps=200, device=device),
+        "downsample_fidelity": lambda bs: downsample_fidelity.run(
+            ckpt, data_yaml, IMG, num_classes=nc, batch_size=bs, device=device),
+        "pretopk_equivalence": lambda bs: pretopk_equivalence.run(
+            ckpt, data_yaml, batch_size=bs, device=device),
+    }
+    launches = {}
+    for name, bs, per_batch in EVIDENCE_SCRIPTS:
+        counter, undo = _counting_forwards()
+        try:
+            (res, n_launch), s = _synced_s(lambda: launched(lambda: runs[name](bs)))
+        finally:
+            undo()
+        # downsample_fidelity's loader drops a ragged tail, the others keep it
+        n_batches = n_val // bs if name == "downsample_fidelity" else -(-n_val // bs)
+        expected = n_batches * per_batch
+        emit({"phase": f"script_{name}", "gpu": gpu, "batch": bs, "wall_s": s,
+              "launches": n_launch, "quantized_forwards": counter[0], "result": res})
+        check(counter[0] == expected and n_launch == 3 * expected,
+              f"{name}: {n_launch} launches in {counter[0]} quantized forwards "
+              f"(expected {expected} forwards)")
+        numbers = list(_numbers(res))
+        check(numbers and all(np.isfinite(v) for v in numbers),
+              f"{name}: a non-finite result {res}")
+        launches[name] = n_launch
+    return {"external_bit_maps": n_own, **{f"{k}_maps": v["launches"] for k, v in arms.items()},
+            **launches}
+
+
+def _numbers(tree, skip=("spearman_rho", "spearman_p", "quartiles")):
+    """The numbers of a result tree, without M4's rank test and quartile
+    CIs (undefined, NaN, when every per-image gain is equal)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if k in skip:
+            continue
+        if isinstance(v, (dict, list)):
+            yield from _numbers(v, skip)
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            yield float(v)
+
+
 def main() -> int:
     try:
         import torch
@@ -1524,6 +1707,8 @@ def main() -> int:
         sd = phase_convert(device, gpu)
         path_launches.update(phase_deploy(device, Path(tmp), gpu, sd, Path(tmp) / "ds"))
         lap("7_deploy")
+        path_launches.update(phase_evidence_scripts(device, Path(tmp), gpu))
+        lap("8_evidence_scripts")
     emit({"phase": "wall_s", "gpu": gpu, **wall, "total": round(sum(wall.values()), 3)})
 
     emit({"kernels": [{

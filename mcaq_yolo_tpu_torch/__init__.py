@@ -36,10 +36,29 @@ inference   Predictor, CLI
 train       train step, optimizer, Trainer, CLI
 calibrate   post-training EMA calibration, then freeze
 export      torch.export of the serving program, save and load
+scripts/    the evidence scripts: quality arms, placement ablations, the
+            deploy levers' fidelity
 
 Entry points run on CUDA unless the caller passes device="cpu"; with no
 CUDA device and no explicit "cpu" they raise (`device.resolve_device`).
-Importing the package starts no build and touches no device.
+Importing the package starts no build and touches no device: the names
+below (`from mcaq_yolo_tpu_torch import Predictor`) import their module at
+first use.
 """
 
+from ._lazy import lazy_exports
+
 __version__ = "0.1.0"
+
+__getattr__, __dir__ = lazy_exports(__name__, {
+    "MCAQYOLO": ".models.mcaq_yolo",
+    "MCAQYOLOLoss": ".models.losses",
+    "Trainer": ".train",
+    "Predictor": ".inference",
+    "MorphologicalComplexityAnalyzer": ".core.morphology",
+    "ComplexityToBitMappingNetwork": ".core.bit_allocation",
+    "LinearBitMapper": ".core.bit_allocation",
+    "SpatialAdaptiveQuantization": ".core.quantization",
+    "LearnedSoftMask": ".core.quantization",
+    "CurriculumScheduler": ".core.curriculum",
+})

@@ -28,10 +28,9 @@ import torch
 from .data.dataset import IMG_EXTS, letterbox, read_image, unletterbox_boxes
 from .device import DeviceLike, resolve_device
 from .models.mcaq_yolo import MCAQYOLO
-from .models.weights_io import COLLECTIONS, load_jax_variables, to_jax_variables
 from .models.yolo import decode_and_nms
 from .utils.checkpoint import load_meta
-from .utils.model_utils import tolerant_restore
+from .utils.model_utils import restore_into
 
 
 def auto_pre_topk(max_det: int, conf_threshold: float = 0.25) -> int:
@@ -50,7 +49,9 @@ class Predictor:
     reference's, it takes no calibration mode: it builds a 'minmax' model
     and serves the checkpoint's frozen EMA statistics whatever mode
     calibrated them (an entropy-mode histogram in the checkpoint is left
-    out)."""
+    out).  `data_parallel` (the reference's batch split over devices) and
+    `morph_tile_engine` (default: the meta's `morphology.tile_engine`) are
+    accepted; the port serves on the one device."""
 
     def __init__(self, model_path: str, num_classes: int = 80, variant: str = "yolov8n",
                  img_size: Optional[int] = None, conf_threshold: float = 0.25,
@@ -60,9 +61,13 @@ class Predictor:
                  min_bits: Optional[int] = None, max_bits: Optional[int] = None,
                  monotone_param: Optional[str] = None,
                  normalize_complexity: Optional[bool] = None,
-                 morph_downsample: Optional[int] = None,
+                 morph_downsample: Optional[int] = None, data_parallel: bool = False,
+                 morph_tile_engine: Optional[str] = None,
                  dtype: torch.dtype = torch.float32, device: DeviceLike = None):
         self.device = resolve_device(device)
+        if data_parallel and self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            print(f"[MCAQ] data_parallel: serving on {self.device} only "
+                  f"({torch.cuda.device_count()} devices visible)")
         # every model-defining training key comes from the meta; explicit
         # kwargs win (None = from meta, then the default)
         meta = load_meta(model_path)
@@ -89,6 +94,7 @@ class Predictor:
         normalize_complexity = auto(normalize_complexity,
                                     qcfg.get("normalize_complexity"), False, bool)
         morph_downsample = auto(morph_downsample, morph.get("downsample"), 1, int)
+        morph_tile_engine = auto(morph_tile_engine, morph.get("tile_engine"), "lanes", str)
         self.deploy_temperature = float(meta.get("deploy_temperature", 1.0))
 
         self.img_size = img_size
@@ -110,10 +116,9 @@ class Predictor:
             grid_size=grid_size, min_bits=min_bits, max_bits=max_bits,
             target_bits=target_bits, monotone_param=monotone_param,
             normalize_complexity=normalize_complexity,
-            morph_downsample=morph_downsample, dtype=dtype, device=self.device)
-        template = to_jax_variables(self.model)
-        restored = tolerant_restore(template, model_path)
-        load_jax_variables(self.model, {c: restored[c] for c in COLLECTIONS if c in template})
+            morph_downsample=morph_downsample, morph_tile_engine=morph_tile_engine,
+            dtype=dtype, device=self.device)
+        restore_into(self.model, model_path)
         if warmup:
             self._warmup()
 

@@ -38,6 +38,8 @@ from .yolo import (
     variant_channels,
 )
 
+TILE_ENGINES = ("lanes", "rows")
+
 
 class MCAQYOLO(nn.Module):
     """forward(x (B, H, W, 3) uint8 or float, temperature, quantize) ->
@@ -55,7 +57,9 @@ class MCAQYOLO(nn.Module):
     CUDA kernel on CUDA tensors and its plain version on the CPU; 'torch' =
     always the plain version.
     The model is built on `device` (default CUDA; raises without one) with
-    a seeded random init, in eval mode."""
+    a seeded random init, in eval mode.  `morph_tile_engine` is the
+    reference's choice of tile layout for its TPU morphology ('lanes' or
+    'rows'); both compute the same metrics, which the port computes one way."""
 
     def __init__(self, variant: str = "yolov8n", num_classes: int = 80,
                  min_bits: int = 2, max_bits: int = 8, target_bits: float = 4.0,
@@ -63,9 +67,13 @@ class MCAQYOLO(nn.Module):
                  constant_bits: float = 4.0, monotone_param: str = "softplus",
                  normalize_complexity: bool = False, calibration_mode: str = "minmax",
                  smooth_transitions: bool = True, quant_backend: str = "auto",
-                 morph_downsample: int = 1, dtype: torch.dtype = torch.float32,
-                 device: DeviceLike = None, seed: int = 0):
+                 morph_downsample: int = 1, morph_tile_engine: str = "lanes",
+                 dtype: torch.dtype = torch.float32, device: DeviceLike = None,
+                 seed: int = 0):
         super().__init__()
+        if morph_tile_engine not in TILE_ENGINES:
+            raise ValueError(f"morph_tile_engine must be one of {TILE_ENGINES}, "
+                             f"got {morph_tile_engine!r}")
         device = resolve_device(device)
         self.variant, self.num_classes = variant, num_classes
         self.min_bits, self.max_bits, self.target_bits = min_bits, max_bits, target_bits
@@ -73,6 +81,7 @@ class MCAQYOLO(nn.Module):
         self.monotone_param = monotone_param
         self.normalize_complexity = normalize_complexity
         self.morph_downsample = morph_downsample
+        self.morph_tile_engine = morph_tile_engine
         self.dtype = dtype
 
         self.backbone = YOLOv8Backbone(variant)
@@ -112,21 +121,25 @@ class MCAQYOLO(nn.Module):
 
     def mcaq_transform(self, feat: torch.Tensor, scale_idx: int, temperature: float,
                        quantize: bool, training: bool = False,
-                       update_stats: Optional[bool] = None):
+                       update_stats: Optional[bool] = None,
+                       bit_map: Optional[torch.Tensor] = None):
         """feat NCHW channels_last -> (feat_q NCHW, complexity, bit_map).
         Continuous bits with `training`; `quantize=False` (curriculum
-        Stage 1) still runs the analyzer and the mapper."""
+        Stage 1) still runs the analyzer and the mapper.  A given `bit_map`
+        (B, Ht, Wt) replaces the analyzer and the mapper (complexity None)."""
         # the MCAQ math runs in float32 even under a bf16 autocast (training);
         # without autocast no context is entered, so torch.export traces plain ops
         autocast = torch.is_autocast_enabled(feat.device.type)
         with torch.autocast(feat.device.type, enabled=False) if autocast \
                 else contextlib.nullcontext():
             f = feat.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-            complexity = self.complexity_analyzer(f)
-            if self.normalize_complexity:
-                complexity = percentile_normalize(complexity)
-            bit_map = self.bit_mapper(complexity, temperature, return_continuous=training,
-                                      training=training)
+            complexity = None
+            if bit_map is None:
+                complexity = self.complexity_analyzer(f)
+                if self.normalize_complexity:
+                    complexity = percentile_normalize(complexity)
+                bit_map = self.bit_mapper(complexity, temperature,
+                                          return_continuous=training, training=training)
             fq = f
             if quantize:
                 fq = self.quantizers[scale_idx](f, bit_map, training=training,
@@ -138,13 +151,25 @@ class MCAQYOLO(nn.Module):
         """`update_stats` (default: `training`): the quantizers take one EMA
         step of their running min/max (calibration passes True with
         training=False).  Without `training` no gradient is recorded."""
+        return self._forward(x, temperature, quantize, training, update_stats)
+
+    def forward_with_bit_maps(self, x: torch.Tensor, bit_maps: List[torch.Tensor],
+                              training: bool = False) -> List[torch.Tensor]:
+        """The quantized forward with externally supplied per-scale bit maps
+        [(B, Ht, Wt)] in place of the analyzer's and mapper's: the raw maps
+        only.  Everything else is `forward`'s code, so the model's own maps
+        give `forward(x, quantize=True)`'s raw maps bitwise."""
+        return self._forward(x, 1.0, True, training, None, bit_maps)[0]
+
+    def _forward(self, x, temperature, quantize, training, update_stats, given_maps=None):
         no_grad = not training and torch.is_grad_enabled()
         with torch.no_grad() if no_grad else contextlib.nullcontext():
             feats = self.backbone(images_to_nchw(x, self.dtype), training)
             feats_q, complexity_maps, bit_maps = [], [], []
             for i, f in enumerate(feats):
-                fq, c, b = self.mcaq_transform(f, i, temperature, quantize, training,
-                                               update_stats)
+                fq, c, b = self.mcaq_transform(
+                    f, i, temperature, quantize, training, update_stats,
+                    None if given_maps is None else given_maps[i])
                 feats_q.append(fq)
                 complexity_maps.append(c)
                 bit_maps.append(b)

@@ -230,6 +230,22 @@ def dfl_decode(box_dist: torch.Tensor) -> torch.Tensor:
     return (p * bins).sum(dim=-1)
 
 
+def decode_predictions(raw_maps: Sequence[torch.Tensor], num_classes: int):
+    """Decode every anchor of the raw maps [(B, H, W, 4*REG_MAX + nc)]:
+    (boxes xyxy (B, A, 4) in input pixels, scores (B, A, nc) sigmoid, anchor
+    points (A, 2), strides (A, 1)).  The input of `ops.nms.batched_nms`."""
+    del num_classes  # implied by the raw-map width
+    B = raw_maps[0].shape[0]
+    points, strides = make_anchors([m.shape[1:3] for m in raw_maps],
+                                   device=raw_maps[0].device)
+    flat = torch.cat([m.reshape(B, -1, m.shape[-1]) for m in raw_maps], dim=1)
+    nreg = 4 * REG_MAX
+    dist = dfl_decode(flat[..., :nreg].reshape(B, -1, 4, REG_MAX))
+    boxes = torch.cat([(points[None] - dist[..., :2]) * strides[None],
+                       (points[None] + dist[..., 2:]) * strides[None]], dim=-1)
+    return boxes, torch.sigmoid(flat[..., nreg:]), points, strides
+
+
 def decode_and_nms(raw_maps: Sequence[torch.Tensor], num_classes: int,
                    conf_threshold: float = 0.25, iou_threshold: float = 0.45,
                    max_det: int = 300, pre_topk: int = 1024,

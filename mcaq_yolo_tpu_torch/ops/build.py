@@ -3,7 +3,8 @@ Build the port's native libraries at first use.
 
 Each `csrc/<name>.cu` (a CUDA kernel) or `csrc/<name>.cpp` (host code)
 exposes a plain C interface and is compiled, by nvcc or by g++, into
-`build/kernels/lib<name>-<hash>.so` at the repository root, then loaded
+`build/kernels/lib<name>-<hash>.so` at the repository root (for an
+installed package, which ships `csrc/`, in the per-user cache), then loaded
 with ctypes (no PyTorch headers, so a build takes seconds).  The hash
 covers the source and the flags, so an edited source rebuilds and
 `python3 chip_smoke.py` alone builds everything.  A failed build raises
@@ -22,7 +23,19 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+
+def build_dir(root: Path) -> Path:
+    """`root/build/kernels` when `root` is a writable source checkout (it
+    holds setup.py); otherwise, e.g. for an installed package, the per-user
+    cache `$XDG_CACHE_HOME/mcaq_yolo_tpu_torch/kernels` (default ~/.cache)."""
+    if (root / "setup.py").exists() and os.access(root, os.W_OK):
+        return root / "build" / "kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "mcaq_yolo_tpu_torch" / "kernels"
+
+
+BUILD_DIR = build_dir(Path(__file__).resolve().parents[2])
 KERNELS = ("spatial_quant",)  # CUDA sources, built by nvcc
 HOST_LIBRARIES = ("dataio",)  # C++ sources, built by g++
 

@@ -1,6 +1,10 @@
 """
-Batched greedy NMS on an already-selected, score-sorted candidate pool
-(port of `mcaq_yolo_tpu/ops/nms.py:39-260`, `nms_from_topk` vmapped).
+Batched greedy NMS (port of `mcaq_yolo_tpu/ops/nms.py`): `nms_from_topk`
+on an already-selected, score-sorted candidate pool (the deployed
+`decode_and_nms` path), and the separate path over decoded boxes and
+per-class scores, `batched_nms` / `batched_nms_from_best` (batched; the
+reference vmaps `non_max_suppression` / `nms_from_best`, which stay here
+for one image).
 
 keep(i) = alive(i) and no higher-scored KEPT candidate overlaps i above
 the IoU threshold.  Computed as the Jacobi fixed point of that rule over
@@ -87,17 +91,19 @@ def greedy_keep(nms_boxes: torch.Tensor, alive: torch.Tensor,
 
 def nms_from_topk(top_boxes: torch.Tensor, top_scores: torch.Tensor,
                   top_classes: torch.Tensor, iou_threshold: float = 0.45,
-                  max_det: int = 300):
+                  max_det: int = 300, class_agnostic: bool = False):
     """top_boxes (B, k, 4) xyxy, top_scores (B, k) score-sorted with the
     confidence gate applied by zeroing, top_classes (B, k) int32 ->
     (boxes (B, max_det, 4), scores (B, max_det), classes (B, max_det),
     valid (B, max_det) bool), survivors first in score order."""
     B, k, _ = top_boxes.shape
     alive = top_scores > 0.0
-    # class-aware: offset each class by the full coordinate span (corners
-    # can be negative), so boxes of different classes never overlap
-    span = (top_boxes.amax(dim=(1, 2)) - top_boxes.amin(dim=(1, 2)) + 1.0)
-    nms_boxes = top_boxes + top_classes.to(top_boxes.dtype)[..., None] * span[:, None, None]
+    nms_boxes = top_boxes
+    if not class_agnostic:
+        # class-aware: offset each class by the full coordinate span (corners
+        # can be negative), so boxes of different classes never overlap
+        span = (top_boxes.amax(dim=(1, 2)) - top_boxes.amin(dim=(1, 2)) + 1.0)
+        nms_boxes = top_boxes + top_classes.to(top_boxes.dtype)[..., None] * span[:, None, None]
     keep = greedy_keep(nms_boxes, alive, iou_threshold)
 
     final_scores = torch.where(keep, top_scores, torch.zeros_like(top_scores))
@@ -112,3 +118,43 @@ def nms_from_topk(top_boxes: torch.Tensor, top_scores: torch.Tensor,
         out_classes = torch.nn.functional.pad(out_classes, (0, pad))
         out_valid = torch.nn.functional.pad(out_valid, (0, pad))
     return out_boxes, out_scores, out_classes, out_valid
+
+
+def batched_nms_from_best(boxes: torch.Tensor, best_scores: torch.Tensor,
+                          best_classes: torch.Tensor, conf_threshold: float = 0.25,
+                          iou_threshold: float = 0.45, max_det: int = 300,
+                          pre_topk: int = 1024, class_agnostic: bool = False):
+    """NMS on pre-reduced candidates: boxes (B, A, 4) xyxy, best_scores (B, A)
+    per-anchor best-class score, best_classes (B, A) int32 -> padded
+    detections as `nms_from_topk`.  The gate zeroes scores, then the top
+    `pre_topk` (ties to the lowest index) enter the suppression."""
+    gated = torch.where(best_scores >= conf_threshold, best_scores,
+                        torch.zeros_like(best_scores))
+    k = min(pre_topk, boxes.shape[1])
+    top_scores, top_idx = stable_topk(gated, k)
+    top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
+    top_classes = torch.gather(best_classes.to(torch.int32), 1, top_idx)
+    return nms_from_topk(top_boxes, top_scores, top_classes, iou_threshold=iou_threshold,
+                         max_det=max_det, class_agnostic=class_agnostic)
+
+
+def batched_nms(boxes: torch.Tensor, scores: torch.Tensor, **kwargs):
+    """boxes (B, A, 4), per-class scores (B, A, nc) -> padded detections;
+    keyword arguments as `batched_nms_from_best`."""
+    best_scores, best_classes = scores.max(dim=-1)
+    return batched_nms_from_best(boxes, best_scores, best_classes.to(torch.int32), **kwargs)
+
+
+def nms_from_best(boxes: torch.Tensor, best_score: torch.Tensor, best_class: torch.Tensor,
+                  **kwargs):
+    """One image: boxes (A, 4), best_score (A,), best_class (A,) ->
+    (boxes (max_det, 4), scores, classes, valid)."""
+    det = batched_nms_from_best(boxes[None], best_score[None], best_class[None], **kwargs)
+    return tuple(d[0] for d in det)
+
+
+def non_max_suppression(boxes: torch.Tensor, scores: torch.Tensor, **kwargs):
+    """One image: boxes (A, 4), per-class scores (A, nc) -> (boxes
+    (max_det, 4), scores, classes, valid), score-sorted."""
+    det = batched_nms(boxes[None], scores[None], **kwargs)
+    return tuple(d[0] for d in det)

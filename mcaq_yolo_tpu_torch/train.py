@@ -31,7 +31,8 @@ optimizer, the eval and validation-loss steps, the teacher export, the
     bfloat16 under autocast on CUDA, with float32 weights; the MCAQ math,
     the teacher and the losses stay float32.
 
-Not ported yet: FSDP (`training.parallel`).
+`training.parallel` takes the reference's 'dp' and 'fsdp' (anything else
+raises); the port trains on one device in both.
 """
 
 from __future__ import annotations
@@ -408,7 +409,7 @@ class Trainer:
             monotone_param=str(qcfg.get("monotone_param", "softplus")),
             normalize_complexity=bool(qcfg.get("normalize_complexity", False)),
             morph_downsample=int(morph.get("downsample", 1)),
-            device=self.device, seed=self.seed)
+            morph_tile_engine=self.morph_tile_engine, device=self.device, seed=self.seed)
         enforce_monotonic_params(self.model.bit_mapper)
         self.loss_obj = MCAQYOLOLoss(self.num_classes, float(qcfg.get("target_bits", 4.0)))
 
@@ -470,6 +471,16 @@ class Trainer:
             weight_decay=float(ocfg.get("weight_decay", 0.05)),
             decay_bit_mapper=bool(ocfg.get("decay_bit_mapper", False)),
             kind=str(ocfg.get("type", "adamw")).lower())
+
+        # 'dp' replicates and 'fsdp' shards the state over the reference's
+        # device mesh; the port trains on one device in either mode
+        self.parallel_mode = str(config.get("training", {}).get("parallel", "dp")).lower()
+        if self.parallel_mode not in ("dp", "fsdp"):
+            raise ValueError(f"training.parallel must be 'dp' or 'fsdp', got "
+                             f"{self.parallel_mode!r}")
+        if self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            print(f"[MCAQ] training.parallel={self.parallel_mode!r}: training on "
+                  f"{self.device} only ({torch.cuda.device_count()} devices visible)")
 
         self.map_interval = max(1, int(config.get("training", {}).get("map_interval", 1)))
         self.train_step = make_train_step(self.model, self.loss_obj, self.teacher,

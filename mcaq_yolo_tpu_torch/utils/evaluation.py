@@ -1,8 +1,10 @@
 """
-Detection evaluation (port of `mcaq_yolo_tpu/utils/evaluation.py:26-225`):
+Detection evaluation (port of `mcaq_yolo_tpu/utils/evaluation.py`):
 per-class AP with score-sorted greedy matching, mAP@0.5 and COCO-style
 mAP@[.5:.95], host-side NumPy over the padded detections the device
-returns.
+returns; and the quantization-impact helpers of the evidence scripts
+(raw-map divergence between the float and the quantized forward, its
+correlation with complexity).
 
   * per-class AP over the union of ground-truth and detected classes; a
     class detected but never in the ground truth scores AP 0
@@ -180,3 +182,55 @@ def evaluate_mcaq_yolo(forward_fn, dataloader, conf_threshold: float = 0.001,
         with open(output_json, "w") as f:
             json.dump(results, f, indent=2, default=float)
     return results
+
+
+def analyze_complexity_correlation(complexity_scores: np.ndarray,
+                                   sensitivities: np.ndarray) -> Dict:
+    """Pearson and Spearman correlation between per-image complexity and
+    quantization sensitivity (the output divergence between the float and an
+    aggressively quantized forward)."""
+    from scipy import stats
+
+    c = np.asarray(complexity_scores, np.float64)
+    s = np.asarray(sensitivities, np.float64)
+    pearson = stats.pearsonr(c, s)
+    spearman = stats.spearmanr(c, s)
+    return {"pearson_r": float(pearson[0]), "pearson_p": float(pearson[1]),
+            "spearman_r": float(spearman[0]), "spearman_p": float(spearman[1]),
+            "n": int(c.size)}
+
+
+def _per_image_divergence(fp_maps, q_maps) -> torch.Tensor:
+    """Mean over scales of each image's mean squared difference of the raw
+    maps (B, H, W, C)."""
+    return sum(torch.mean((a.to(torch.float32) - b.to(torch.float32)) ** 2, dim=(1, 2, 3))
+               for a, b in zip(fp_maps, q_maps)) / len(fp_maps)
+
+
+@torch.no_grad()
+def evaluate_quantization_impact(forward_fp_fn, forward_q_fn, dataloader,
+                                 max_batches: int = 16) -> Dict:
+    """Output divergence between the float (quantize=False) and the
+    quantized forward: per-image mean squared divergence of the raw maps,
+    and its mean / std / max.  forward_*_fn(images) -> raw per-scale maps."""
+    divergences = []
+    for i, batch in enumerate(dataloader):
+        imgs = batch["image"]
+        per_img = _per_image_divergence(forward_fp_fn(imgs), forward_q_fn(imgs))
+        divergences.extend(_numpy(per_img).tolist())
+        if i + 1 >= max_batches:
+            break
+    d = np.asarray(divergences)
+    return {"mean_divergence": float(d.mean()), "std_divergence": float(d.std()),
+            "max_divergence": float(d.max()), "per_image": d.tolist()}
+
+
+@torch.no_grad()
+def quantization_sensitivity(model_apply, images, temperature: float = 0.1) -> torch.Tensor:
+    """Per-image sensitivity: the divergence between the unquantized forward
+    and an aggressively quantized one (a low temperature, so few bits), the
+    quantity `analyze_complexity_correlation` correlates with complexity.
+    model_apply(images, temperature=..., quantize=...) -> raw per-scale maps."""
+    fp_maps = model_apply(images, temperature=1.0, quantize=False)
+    q_maps = model_apply(images, temperature=temperature, quantize=True)
+    return _per_image_divergence(fp_maps, q_maps)

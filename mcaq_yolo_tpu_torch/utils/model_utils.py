@@ -1,6 +1,6 @@
 """
 Model statistics and profiling (port of `mcaq_yolo_tpu/utils/model_utils.py`):
-the tolerant checkpoint restore the Predictor uses, parameter counts and
+the tolerant checkpoint restore the Predictor and the scripts use, parameter counts and
 size, steady-state throughput, per-channel post-training weight
 fake-quantization, and activation-range collection.
 """
@@ -17,7 +17,7 @@ import torch.nn as nn
 
 from ..core.bit_allocation import MonotoneDense
 from ..core.quantization import quantize_tensor
-from ..models.weights_io import COLLECTIONS
+from ..models.weights_io import COLLECTIONS, load_jax_variables, to_jax_variables
 from .checkpoint import load_checkpoint
 
 
@@ -49,6 +49,15 @@ def tolerant_restore(template: Dict, ckpt_path, collections=COLLECTIONS,
         return out
 
     return {k: overlay(template.get(k, {}), payload.get(k)) for k in collections}
+
+
+def restore_into(model: nn.Module, ckpt_path, warn: bool = True) -> nn.Module:
+    """`tolerant_restore` of a checkpoint into `model` itself, in place:
+    leaves the checkpoint lacks keep the model's values.  Returns the model."""
+    template = to_jax_variables(model)
+    restored = tolerant_restore(template, ckpt_path, warn=warn)
+    load_jax_variables(model, {c: restored[c] for c in COLLECTIONS if c in template})
+    return model
 
 
 def count_parameters(model: nn.Module) -> Dict[str, int]:

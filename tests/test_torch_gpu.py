@@ -24,7 +24,9 @@ Training from disk: the device-resident pipeline on the card equals its CPU
 result (clean bank and mosaic bitwise, HSV and affine within 1 level); the
 native letterbox builds and agrees with its float variant (and cv2's
 resize, where installed); `evaluate` and the validation loss launch the
-kernel three times per quantized forward and never in Stage 1."""
+kernel three times per quantized forward and never in Stage 1.  The
+evidence scripts' forward with bit maps supplied from outside (own,
+permuted, constant) is bitwise the plain path's, in 3 launches."""
 
 import numpy as np
 import pytest
@@ -357,3 +359,35 @@ def test_exported_program_launches_the_kernel(cuda, tmp_path):
     torch.cuda.synchronize()
     assert sq.spatial_quantize.launches - before == 3 * 3
     assert all(torch.equal(a, b) for a, b in zip(raw_k, raw_p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("maps", ["own", "permuted", "constant"])
+def test_external_bit_maps_through_the_kernel(cuda, maps):
+    """The M3 / M4 forward with bit maps supplied from outside: the model's
+    own maps reproduce its quantized forward bitwise, and every map gives
+    the plain path's raw maps bitwise, in 3 launches."""
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+    from mcaq_yolo_tpu_torch.scripts.m3_permutation import (apply_external_bit_maps,
+                                                            permute_bit_map)
+
+    model = MCAQYOLO(num_classes=16, device=cuda, seed=2)
+    x = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (2, 256, 256, 3), dtype=np.uint8)).to(cuda)
+    raw, aux = model(x, quantize=True)
+    given = {"own": aux["bit_map"],
+             "permuted": [torch.as_tensor(np.stack([permute_bit_map(m[i], "permuted", i)
+                                                    for i in range(2)]), device=cuda)
+                          for m in (b.cpu().numpy() for b in aux["bit_map"])],
+             "constant": [torch.full_like(b, 5.0) for b in aux["bit_map"]]}[maps]
+    sq.spatial_quantize.launches = 0
+    out = apply_external_bit_maps(model, x, given)
+    torch.cuda.synchronize()
+    assert sq.spatial_quantize.launches == 3
+    model.set_quant_backend("torch")
+    plain = apply_external_bit_maps(model, x, given)
+    for a, b in zip(out, plain):
+        assert torch.equal(a, b)
+    if maps == "own":
+        for a, b in zip(out, raw):
+            assert torch.equal(a, b)

@@ -30,10 +30,15 @@ _PROBE = textwrap.dedent("""
                  "batch_norm", "data.synthetic",  # the training slice
                  "data.dataset", "data.native_loader", "data.device_pipeline",
                  "core.morphology_cv2", "utils.evaluation", "utils.repro",  # from disk
-                 "export", "utils.model_utils", "utils.visualization"):  # deployment
+                 "export", "utils.model_utils", "utils.visualization",  # deployment
+                 "scripts.quality_evidence", "scripts.quality_assemble",  # evidence
+                 "scripts.m3_permutation", "scripts.m4_variation_gain",
+                 "scripts.downsample_fidelity", "scripts.pretopk_equivalence"):
         assert "mcaq_yolo_tpu_torch." + name in names, name
     import torch
     assert hasattr(torch.ops.mcaq, "spatial_quantize")  # registered at import
+    from mcaq_yolo_tpu_torch.ops import build
+    assert not build._libs  # nothing was built or loaded
 
     import torch
     if not torch.cuda.is_available():
@@ -44,13 +49,22 @@ _PROBE = textwrap.dedent("""
         from mcaq_yolo_tpu_torch.data.device_pipeline import DevicePipeline
         from mcaq_yolo_tpu_torch.train import main
         from mcaq_yolo_tpu_torch.inference import main as infer_main
+        from mcaq_yolo_tpu_torch.scripts import (downsample_fidelity, m3_permutation,
+                                                 m4_variation_gain, pretopk_equivalence,
+                                                 quality_evidence)
+        ck = ["--model", "no-such.ckpt", "--data", "no-such.yaml"]
+        script_mains = [lambda: quality_evidence.main(["--root", "/nonexistent/never-made"]),
+                        lambda: m3_permutation.main(ck), lambda: m4_variation_gain.main(ck),
+                        lambda: downsample_fidelity.main(["--ckpt", "x", "--data", "y"]),
+                        lambda: pretopk_equivalence.main(["--ckpt", "x", "--data-yaml", "y"])]
         for build in (lambda: MCAQYOLO(num_classes=4), lambda: YOLOv8(num_classes=4),
                       lambda: Predictor("no-such.ckpt", warmup=False),
                       lambda: Trainer({"output_dir": "/nonexistent/never-made"}, []),
                       lambda: Trainer({"output_dir": "/nonexistent/never-made"}),
                       lambda: DevicePipeline(type("D", (), {"img_size": 64})()),
                       lambda: main(["--config", "/nonexistent/never-read.yaml"]),
-                      lambda: infer_main(["--model", "no-such.ckpt", "--source", "."])):
+                      lambda: infer_main(["--model", "no-such.ckpt", "--source", "."]),
+                      *script_mains):
             try:
                 build()
             except RuntimeError as e:
@@ -59,6 +73,32 @@ _PROBE = textwrap.dedent("""
                 raise AssertionError("an entry point ran without CUDA or device='cpu'")
     print("ISOLATED", len(names))
 """)
+
+
+_EXPORTS = textwrap.dedent("""
+    import sys
+    from mcaq_yolo_tpu_torch import MCAQYOLO, Predictor, Trainer, CurriculumScheduler
+    from mcaq_yolo_tpu_torch.ops import batched_nms, non_max_suppression
+    from mcaq_yolo_tpu_torch.utils import (compute_map, evaluate_mcaq_yolo, set_global_seed,
+                                           compute_dataset_complexity)
+    from mcaq_yolo_tpu_torch.data import YOLODataset, make_synthetic_dataset_v3
+    from mcaq_yolo_tpu_torch.core import LinearBitMapper, SpatialAdaptiveQuantization
+    from mcaq_yolo_tpu_torch.models import VARIANTS, MCAQYOLOLoss
+    import torch
+    from mcaq_yolo_tpu_torch.ops import build
+    assert not build._libs  # no build started
+    assert not torch.cuda.is_initialized()  # no device touched
+    print("EXPORTS OK")
+""")
+
+
+def test_package_exports_resolve_lazily_without_a_build_or_a_device():
+    """The package and its sub-packages export the reference's names (PEP 562,
+    resolved at first use); resolving them builds nothing and touches no
+    device."""
+    r = subprocess.run([sys.executable, "-c", _EXPORTS], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0 and "EXPORTS OK" in r.stdout, r.stdout + r.stderr
 
 
 def test_port_imports_without_jax_and_needs_an_explicit_cpu():
