@@ -98,7 +98,16 @@ Phases (any failure exits non-zero and prints no result):
      its batches imply; (d) `batched_nms` over `decode_predictions` equals
      `decode_and_nms` at the same gate and pool (conf 0.001 and 1e-7, pool
      1024: the same valid set and classes, boxes and scores within 1e-6
-     relative), both timed.
+     relative), both timed;
+  9. diagnostics (the profiling layer and the morphology options, each
+     path's spatial_quant launches counted): `component_breakdown` with
+     FLOPs and byte floors at bs 32 and 256 (640 px, bf16), its `with_mcaq`
+     features bitwise equal to the forward's through the kernel and the
+     plain version; the bs-256 roofline, every stage's bound at most its
+     time; a short batch sweep; the morphology operators at P3 / P4 / P5
+     (bs 32) with their CUDA kernel counts; the yolov8n bs-16 train-step
+     breakdown (its backward counted, its bound under its time); the
+     backend-agreement arms at 16 images, 256 px; one trace with kernels.
 
 Output: JSON lines; before the last, the `{"kernels": [...]}` summary; the
 last line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1647,6 +1656,200 @@ def phase_evidence_scripts(device, workdir: Path, gpu: str):
             **launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9
+# ---------------------------------------------------------------------------
+
+DIAG_ITERS = 15         # timed rounds of the sub-programs (after 3 warm-up rounds)
+DIAG_BATCHES = (32, 256)
+ROOFLINE_BATCH = 256
+SWEEP_BATCHES = (32, 64)
+MORPH_SCALES = (("P3", 80, 8), ("P4", 40, 4), ("P5", 20, 2))
+# (corpus, metric_mode, legacy): both corpora in the deployed mode, the two
+# ablation arms on the synthetic one (the full-size run covers all six)
+AGREEMENT_ARMS = (("synthetic", "tiled", False), ("natural", "tiled", False),
+                  ("synthetic", "tiled", True), ("synthetic", "global", False))
+R4_FUSED_PEARSON = {"synthetic": 0.970, "natural": 0.917}  # evidence/r4, JAX on a TPU
+
+
+def _counting_quantized_transforms():
+    """Patch MCAQYOLO.mcaq_transform so that every quantizing eval call (one
+    spatial_quant launch on the card) is counted; returns (counter, undo)."""
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+
+    counter, orig = [0], MCAQYOLO.mcaq_transform
+
+    def mcaq_transform(self, feat, scale_idx, temperature, quantize, training=False, *a, **k):
+        counter[0] += int(quantize and not training)
+        return orig(self, feat, scale_idx, temperature, quantize, training, *a, **k)
+
+    MCAQYOLO.mcaq_transform = mcaq_transform
+    return counter, lambda: setattr(MCAQYOLO, "mcaq_transform", orig)
+
+
+def _path_launches(name, fn, forwards=None):
+    """Run fn with the launch count zeroed before and read after, the
+    quantizing transforms counted; check launches = 3 x the quantized
+    forwards (= transforms / 3), and that there were `forwards` of them
+    when given.  Returns (result, launches, seconds)."""
+    import torch
+
+    from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
+
+    counter, undo = _counting_quantized_transforms()
+    try:
+        torch.cuda.synchronize()
+        sq.spatial_quantize.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = sq.spatial_quantize.launches
+    finally:
+        undo()
+    check(launches == counter[0] and counter[0] % 3 == 0,
+          f"{name}: {launches} launches in {counter[0]} quantizing transforms")
+    if forwards is not None:
+        check(counter[0] == 3 * forwards,
+              f"{name}: {counter[0] // 3} quantized forwards, expected {forwards}")
+    return out, launches, seconds
+
+
+def phase_diagnostics(device, gpu: str, workdir: Path):
+    """The profiling layer and the morphology options on the card: (a)
+    `component_breakdown(cost=True)` at bs 32 and 256 (640 px, bf16,
+    `seeded_model`), its `with_mcaq` features bitwise equal to the ones
+    the forward feeds the neck, through the kernel and through the plain
+    version; (b) `roofline.run` at bs 256, every stage's bound <= its time;
+    (c) a short `perf_sweep_diag` sweep; (d) `profile_morphology.run` at P3
+    / P4 / P5 (bs 32) with each operator's kernel count; (e)
+    `train_breakdown.run` at yolov8n, bs 16 (phase 5's config); (f)
+    `backend_agreement.run` on the synthetic and natural corpora (16 images,
+    256 px), and the legacy and global arms on the synthetic one; (g)
+    `utils.profiling.trace` of one forward.  Launches: 3 per quantized forward on (a)-(c), none on
+    (d)-(f)."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from mcaq_yolo_tpu_torch.scripts import (backend_agreement, perf_sweep_diag,
+                                             profile_morphology, roofline, train_breakdown)
+    from mcaq_yolo_tpu_torch.utils import profiling
+
+    torch.backends.cudnn.deterministic = False
+    dtype = torch.bfloat16
+    model = seeded_model(device, dtype)
+    progs = profiling.breakdown_programs(model)
+    rng = np.random.default_rng(9)
+    launches = {}
+    per_call = 2 * (3 + DIAG_ITERS + 1)  # full and with_mcaq: warm-up, timed, cost pass
+    # roofline: that, then the full forward and the deployed program in turns, and
+    # the deployed program's cost pass
+
+    for bs in DIAG_BATCHES:
+        x = torch.from_numpy(rng.integers(0, 256, (bs, IMG, IMG, 3), dtype=np.uint8)).to(device)
+        bd, n, s = _path_launches(
+            f"component_breakdown_bs{bs}",
+            lambda: profiling.component_breakdown(model, x, iters=DIAG_ITERS, cost=True),
+            forwards=per_call)
+        launches[f"component_breakdown_bs{bs}"] = n
+        stages = ("backbone", "morphology", "bitmap_quantize", "neck_head")
+        check(all(np.isfinite(bd[f"{k}_ms"]) for k in ("full",) + stages),
+              f"component_breakdown bs {bs}: a non-finite time {bd}")
+        check(bd["full_gflops"] > 0 and bd["backbone_gb_floor"] > 0,
+              f"component_breakdown bs {bs}: no FLOPs or bytes counted")
+        same = {}
+        with torch.inference_mode():
+            for backend in ("auto", "torch"):
+                model.set_quant_backend(backend)
+                _, aux = progs["full"](x)
+                q = progs["with_mcaq"](x)
+                same[backend] = (aux["quantized_features"], q)
+            model.set_quant_backend("auto")
+        bitwise = {b: all(torch.equal(a.view(torch.int16), c.view(torch.int16))
+                          for a, c in zip(*same[b])) for b in same}
+        bitwise["kernel_vs_plain"] = all(
+            torch.equal(a.view(torch.int16), c.view(torch.int16))
+            for a, c in zip(same["auto"][1], same["torch"][1]))
+        emit({"phase": "component_breakdown", "gpu": gpu, "batch": bs, "img_size": IMG,
+              "dtype": str(dtype), "iters": DIAG_ITERS, "wall_s": s, "launches": n,
+              "with_mcaq_bitwise": bitwise, **bd})
+        check(all(bitwise.values()),
+              f"bs {bs}: with_mcaq's features differ from the forward's: {bitwise}")
+        del x, same
+
+    res, n, s = _path_launches(
+        "roofline", lambda: roofline.run(batch=ROOFLINE_BATCH, iters=DIAG_ITERS, device=device),
+        forwards=per_call + 2 * (3 + DIAG_ITERS) + 1)
+    launches["roofline"] = n
+    emit({"phase": "roofline", "gpu": gpu, "wall_s": s, "launches": n, **res})
+    for row in res["stages"]:
+        check(np.isfinite(row["ms"]) and row["bound_ms"] <= row["ms"],
+              f"roofline stage {row['stage']}: bound {row['bound_ms']} ms, measured "
+              f"{row['ms']} ms")
+
+    res, n, s = _path_launches(
+        "perf_sweep_diag", lambda: perf_sweep_diag.run(list(SWEEP_BATCHES), iters=2,
+                                                       device=device),
+        forwards=2 * (3 + 2 + 1) + 2 * (3 + 2))
+    launches["perf_sweep_diag"] = n
+    emit({"phase": "perf_sweep_diag", "gpu": gpu, "wall_s": s, "launches": n, **res})
+    check(all(np.isfinite(v) for r in res["sweep"].values() for v in r["ms"].values()),
+          "perf_sweep_diag: a non-finite time")
+
+    n_morph = 0
+    for name, hw, tile in MORPH_SCALES:
+        res, n, s = _path_launches(
+            f"profile_morphology_{name}",
+            lambda: profile_morphology.run(batch=32, hw=hw, tile=tile, iters=DIAG_ITERS,
+                                           device=device), forwards=0)
+        n_morph += n
+        emit({"phase": "profile_morphology", "gpu": gpu, "scale": name, "wall_s": s,
+              "launches": n, **res})
+        kernels = res["cuda_kernels"]
+        # every operator timed and its kernels counted exactly (each count is
+        # that of two CUDA graph captures, which `cuda_kernels` holds equal)
+        check(all(isinstance(v, int) and v > 0 for v in kernels.values())
+              and all(res[k] > 0 for k in kernels), f"profile_morphology {name}: {res}")
+    launches["profile_morphology"] = n_morph
+
+    res, n, s = _path_launches(
+        "train_breakdown", lambda: train_breakdown.run("yolov8n", batch=TRAIN_BATCH, img=IMG,
+                                                       iters=3, device=device), forwards=0)
+    launches["train_breakdown"] = n
+    emit({"phase": "train_breakdown", "gpu": gpu, "wall_s": s, "launches": n, **res})
+    check(all(np.isfinite(v) for v in res["raw_ms"].values()), "train_breakdown: a bad time")
+    check(res["step_ops"].get("aten.convolution_backward", 0) > 0
+          and res["step_bound_ms"] <= res["raw_ms"]["full_step_ms"],
+          f"train_breakdown: backward not counted or bound above the step: {res}")
+
+    n_agree = 0
+    for corpus, mode, legacy in AGREEMENT_ARMS:
+        res, n, s = _path_launches(
+            f"backend_agreement_{corpus}", lambda: backend_agreement.run(
+                num_images=16, img_size=256, legacy=legacy, metric_mode=mode,
+                corpus=corpus, device=device), forwards=0)
+        n_agree += n
+        fused = res["fused"]["pearson"]
+        emit({"phase": "backend_agreement", "gpu": gpu, "wall_s": s, "launches": n,
+              "r4_fused_pearson": R4_FUSED_PEARSON[corpus] if not legacy
+              and mode == "tiled" else None, **res})
+        check(np.isfinite(fused), f"backend_agreement {corpus} {mode} legacy={legacy}: "
+                                  f"fused Pearson {fused}")
+    launches["backend_agreement"] = n_agree
+
+    x = torch.from_numpy(rng.integers(0, 256, (8, IMG, IMG, 3), dtype=np.uint8)).to(device)
+    with torch.inference_mode(), profiling.trace(str(workdir / "trace")) as log_dir:
+        model(x)
+        torch.cuda.synchronize()
+    events = _json.loads((Path(log_dir) / "trace.json").read_text())["traceEvents"]
+    n_kernels = sum(1 for ev in events if ev.get("cat") == "kernel")
+    emit({"phase": "trace", "gpu": gpu, "events": len(events), "kernel_events": n_kernels})
+    check(n_kernels > 0, "the trace holds no CUDA kernel")
+    return launches
+
+
 def _numbers(tree, skip=("spearman_rho", "spearman_p", "quartiles")):
     """The numbers of a result tree, without M4's rank test and quartile
     CIs (undefined, NaN, when every per-image gain is equal)."""
@@ -1709,6 +1912,8 @@ def main() -> int:
         lap("7_deploy")
         path_launches.update(phase_evidence_scripts(device, Path(tmp), gpu))
         lap("8_evidence_scripts")
+        path_launches.update(phase_diagnostics(device, gpu, Path(tmp)))
+        lap("9_diagnostics")
     emit({"phase": "wall_s", "gpu": gpu, **wall, "total": round(sum(wall.values()), 3)})
 
     emit({"kernels": [{

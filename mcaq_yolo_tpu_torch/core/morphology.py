@@ -1,7 +1,7 @@
 """
-Morphological complexity analysis, per-tile metric mode (eval path).
+Morphological complexity analysis (port of `mcaq_yolo_tpu/core/morphology.py`).
 
-Port of `mcaq_yolo_tpu/core/morphology.py:304-583` with the operator
+The per-tile metric mode (the default, and the deployed path) runs the operator
 arithmetic of its default engine, `core/morphology_lanes.py` (separable
 shift-add Gaussian/Sobel, shift-max/min binary morphology, sort-based
 per-tile Otsu).  The reference packs tiles into the TPU's 128 vector lanes
@@ -19,8 +19,14 @@ the deterministic Eq.(8) dataset scores of the curriculum; on a 640 px
 image at grid 8 they run the same engine on a 10 x 10 grid of 64 x 64
 tiles (the tile is the largest power of two <= 640 / 8).
 
-Not ported here: the 'global' metric mode and the legacy Canny / Otsu
-binarization variants (ROADMAP queue A).
+The options kept for ablation, with the reference's defaults: `canny_impl=
+'legacy'` (L2 magnitude, Otsu on the normalized NMS, 2 hysteresis passes),
+`binarize_impl='otsu'`, `contour_components=False` (no Euler-K division) and
+`metric_mode='global'` (the reference surrogate's whole-image operators
+with zero borders, then per-tile statistics; `phi_metrics_global`).  The
+shift operators below take (N, t, t) tiles or whole (B, H, W) maps alike;
+the global mode's blurs and Sobel are the reference's whole-image convs
+(`image_ops`).
 """
 
 from __future__ import annotations
@@ -37,45 +43,45 @@ from .. import initializers as init
 from . import image_ops as iops
 
 # ---------------------------------------------------------------------------
-# Intra-tile shifts on (N, t, t)
+# Shifts within a map: (N, t, t) tiles or whole (B, H, W) images
 # ---------------------------------------------------------------------------
 
 
 def _pad(x: torch.Tensor, p: int, mode: str) -> torch.Tensor:
-    """Pad the tile border by p: 'edge' replicates (cv2 reflect101
+    """Pad the map's border by p: 'edge' replicates (cv2 reflect101
     approximation), 'zero' pads 0 (dilation), 'one' pads 1 (erosion)."""
     if mode == "edge":
         return F.pad(x[:, None], (p, p, p, p), mode="replicate")[:, 0]
     return F.pad(x, (p, p, p, p), value=1.0 if mode == "one" else 0.0)
 
 
-def _shifted(xp: torch.Tensor, p: int, t: int, dy: int, dx: int) -> torch.Tensor:
-    """Tile content shifted by (dy, dx) — out[y, x] = x[y + dy, x + dx] —
-    read from a tensor padded by p >= max(|dy|, |dx|)."""
-    return xp[:, p + dy:p + dy + t, p + dx:p + dx + t]
+def _shifted(xp: torch.Tensor, p: int, dy: int, dx: int) -> torch.Tensor:
+    """Map content shifted by (dy, dx) — out[y, x] = x[y + dy, x + dx] —
+    read from a map padded by p >= max(|dy|, |dx|)."""
+    H, W = xp.shape[1] - 2 * p, xp.shape[2] - 2 * p
+    return xp[:, p + dy:p + dy + H, p + dx:p + dx + W]
 
 
 def _shift(x: torch.Tensor, dy: int, dx: int, mode: str) -> torch.Tensor:
     p = max(abs(dy), abs(dx))
     if p == 0:
         return x
-    return _shifted(_pad(x, p, mode), p, x.shape[1], dy, dx)
+    return _shifted(_pad(x, p, mode), p, dy, dx)
 
 
 def _sep_filter(x: torch.Tensor, taps, mode: str) -> torch.Tensor:
     """Separable filter: 1-D taps along y then x, accumulated in tap order
     (the reference engine's summation order)."""
     r = len(taps) // 2
-    t = x.shape[1]
     xp = _pad(x, r, mode)
     out = None
     for i, w in enumerate(taps):
-        s = _shifted(xp, r, t, i - r, 0) * w
+        s = _shifted(xp, r, i - r, 0) * w
         out = s if out is None else out + s
     op = _pad(out, r, mode)
     res = None
     for i, w in enumerate(taps):
-        s = _shifted(op, r, t, 0, i - r) * w
+        s = _shifted(op, r, 0, i - r) * w
         res = s if res is None else res + s
     return res
 
@@ -92,17 +98,16 @@ def _gaussian_taps(k: int, sigma: float):
     return tuple(float(v) for v in g)
 
 
-def sobel(x: torch.Tensor):
-    """3x3 Sobel via separable passes with edge borders: Gx = [1,2,1]_y *
-    [-1,0,1]_x, Gy = [1,2,1]_x * [-1,0,1]_y."""
-    t = x.shape[1]
+def sobel(x: torch.Tensor, mode: str = "edge"):
+    """3x3 Sobel via separable passes, tile borders `mode` ('edge' or
+    'zero'): Gx = [1,2,1]_y * [-1,0,1]_x, Gy = [1,2,1]_x * [-1,0,1]_y."""
 
     def pass1(v, taps, axis):
-        vp = _pad(v, 1, "edge")
+        vp = _pad(v, 1, mode)
         out = None
         for i, w in enumerate(taps):
             dy, dx = (i - 1, 0) if axis == 0 else (0, i - 1)
-            s = _shifted(vp, 1, t, dy, dx) * w
+            s = _shifted(vp, 1, dy, dx) * w
             out = s if out is None else out + s
         return out
 
@@ -157,14 +162,15 @@ def otsu_threshold(x: torch.Tensor, bins: int = 256) -> torch.Tensor:
 
 
 def _canny_nms(mag, gx, gy):
-    """Non-maximum suppression along 4 quantized gradient directions."""
+    """Non-maximum suppression along 4 quantized gradient directions, the
+    neighbours read with edge borders.  Tiles (N, t, t) or whole (B, H, W)
+    maps."""
     angle = torch.atan2(gy, gx) * (180.0 / math.pi)
     angle = torch.where(angle < 0, angle + 180.0, angle)
-    t = mag.shape[1]
     mp = _pad(mag, 1, "edge")
 
     def sh(dy, dx):
-        return _shifted(mp, 1, t, dy, dx)
+        return _shifted(mp, 1, dy, dx)
 
     bins = [
         ((angle < 22.5) | (angle >= 157.5), (0, 1), (0, -1)),
@@ -191,14 +197,32 @@ def canny_cv2compat(tiles: torch.Tensor, hysteresis_iters: int = 8) -> torch.Ten
     gx, gy = sobel(b255)
     mag = torch.abs(gx) + torch.abs(gy)
     nms = _canny_nms(mag, gx, gy)
-    strong = (nms > thr255).to(tiles.dtype)
-    weak = nms > 0.5 * thr255
+    return _hysteresis((nms > thr255).to(tiles.dtype), nms > 0.5 * thr255,
+                       max(1, hysteresis_iters))
 
+
+def _hysteresis(strong: torch.Tensor, weak: torch.Tensor, iters: int) -> torch.Tensor:
+    """`iters` dilation passes growing the strong edges into the weak ones."""
     edge = strong
-    for _ in range(max(1, hysteresis_iters)):
+    for _ in range(iters):
         grown = dilate3(edge)
         edge = torch.where(weak & (grown > 0), torch.ones_like(edge), edge)
     return edge
+
+
+def canny_legacy(tiles: torch.Tensor) -> torch.Tensor:
+    """The legacy per-tile surrogate (reference `morphology_lanes.py:399-414`):
+    zero-border blur and Sobel, L2 magnitude, Otsu on the tile's min-max
+    normalized NMS (high = Otsu, low = Otsu / 2), 2 hysteresis passes."""
+    b = _sep_filter(tiles, _gaussian_taps(5, 1.0), "zero")
+    gx, gy = sobel(b, mode="zero")
+    mag = torch.sqrt(gx ** 2 + gy ** 2 + 1e-12)
+    nms = _canny_nms(mag, gx, gy)
+    mn = nms.amin(dim=(1, 2), keepdim=True)
+    mx = nms.amax(dim=(1, 2), keepdim=True)
+    nms_n = (nms - mn) / (mx - mn + 1e-8)
+    thr = otsu_threshold(nms_n)
+    return _hysteresis((nms_n > thr).to(tiles.dtype), nms_n > 0.5 * thr, 2)
 
 
 def adaptive_binarize(tiles: torch.Tensor, block: int = 11, C: float = 2.0) -> torch.Tensor:
@@ -210,6 +234,11 @@ def adaptive_binarize(tiles: torch.Tensor, block: int = 11, C: float = 2.0) -> t
     return (g255 > local_mean - C).to(tiles.dtype)
 
 
+def otsu_binarize(tiles: torch.Tensor) -> torch.Tensor:
+    """The legacy binarization: 1 above the tile's own Otsu threshold."""
+    return (tiles > otsu_threshold(tiles)).to(tiles.dtype)
+
+
 _gaussian_taps(5, 1.0)                             # cv2compat Canny's blur
 _gaussian_taps(11, 0.3 * ((11 - 1) * 0.5 - 1) + 0.8)  # adaptive_binarize's default
 
@@ -219,25 +248,26 @@ _gaussian_taps(11, 0.3 * ((11 - 1) * 0.5 - 1) + 0.8)  # adaptive_binarize's defa
 # ---------------------------------------------------------------------------
 
 
-def fractal_dimension(edge: torch.Tensor, tile: int) -> torch.Tensor:
-    """phi1 core: weighted log-log slope of dyadic box counts (scales
-    2..tile, weights e^{-0.1 i}), clipped to [1, 2]."""
-    scales = []
-    s = 2
+def _dyadic_scales(tile: int):
+    scales, s = [], 2
     while s <= tile:
         scales.append(s)
         s *= 2
-    if len(scales) < 2:
-        return torch.ones(edge.shape[0], dtype=torch.float32, device=edge.device)
-    # box occupancy at scale s is the max over each s x s block (exact
-    # for {0, 1} maps; equals the reference's dyadic shift-max coarsening)
-    n = torch.stack([F.max_pool2d(edge[:, None], s).sum(dim=(1, 2, 3))
-                     for s in scales], dim=0)  # (S, N)
+    return scales
+
+
+def _fractal_slope(n: torch.Tensor, scales) -> torch.Tensor:
+    """Box counts n (S, ...) at the dyadic `scales` -> the weighted log-log
+    slope (weights e^{-0.1 i}) over the first axis, clipped to [1, 2]."""
     S = len(scales)
-    dev = edge.device
-    x = torch.log(torch.tensor(scales, dtype=torch.float32, device=dev)).reshape(S, 1)
+    shape = (S,) + (1,) * (n.dim() - 1)
+    dev = n.device
+    # the scales 2, 4, ... made on the device (no copy from the host, which
+    # would synchronize with it): exact integers, as float32 as listed
+    s = 2 ** torch.arange(1, S + 1, device=dev)
+    x = torch.log(s.to(torch.float32)).reshape(shape)
     y = torch.log(n + 1.0)
-    w = torch.exp(-0.1 * torch.arange(S, dtype=torch.float32, device=dev)).reshape(S, 1)
+    w = torch.exp(-0.1 * torch.arange(S, dtype=torch.float32, device=dev)).reshape(shape)
     w_sum = w.sum(dim=0)
     x_mean = (w * x).sum(dim=0) / w_sum
     y_mean = (w * y).sum(dim=0) / w_sum
@@ -246,43 +276,70 @@ def fractal_dimension(edge: torch.Tensor, tile: int) -> torch.Tensor:
     return torch.clamp(-(cov / (var + 1e-12)), 1.0, 2.0)
 
 
+def fractal_dimension(edge: torch.Tensor, tile: int) -> torch.Tensor:
+    """phi1 core: weighted log-log slope of dyadic box counts (scales
+    2..tile, weights e^{-0.1 i}), clipped to [1, 2]."""
+    scales = _dyadic_scales(tile)
+    if len(scales) < 2:
+        return torch.ones(edge.shape[0], dtype=torch.float32, device=edge.device)
+    # box occupancy at scale s is the max over each s x s block (exact
+    # for {0, 1} maps; equals the reference's dyadic shift-max coarsening)
+    n = torch.stack([F.max_pool2d(edge[:, None], s).sum(dim=(1, 2, 3))
+                     for s in scales], dim=0)  # (S, N)
+    return _fractal_slope(n, scales)
+
+
 _LBP_OFFSETS = [(-1, -1), (-1, 0), (-1, 1), (0, 1), (1, 1), (1, 0), (1, -1), (0, -1)]
+
+
+def _lbp_labels(x: torch.Tensor) -> torch.Tensor:
+    """Uniform-LBP (P=8, R=1) labels of (B, H, W): the number of neighbours
+    >= the pixel for patterns with at most 2 circular transitions, else 9;
+    neighbours past the border replicate it."""
+    xp = _pad(x, 1, "edge")
+    bits = [(_shifted(xp, 1, dy, dx) >= x).to(torch.float32) for dy, dx in _LBP_OFFSETS]
+    n_ones = sum(bits)
+    trans = sum(torch.abs(bits[i] - bits[i - 1]) for i in range(8))
+    return torch.where(trans <= 2.0, n_ones, torch.full_like(n_ones, 9.0))
+
+
+def _entropy10(label: torch.Tensor, tile_mean) -> torch.Tensor:
+    """Entropy of the 10-bin label histogram per tile / log2(10);
+    `tile_mean` takes a {0, 1} map to its per-tile means."""
+    ent = None
+    for v in range(10):
+        p = tile_mean((label == v).to(torch.float32))
+        term = p * torch.log2(p + 1e-10)
+        ent = -term if ent is None else ent - term
+    return ent / math.log2(10.0)
 
 
 def lbp_entropy(tiles: torch.Tensor) -> torch.Tensor:
     """phi2: uniform-LBP (P=8, R=1) 10-bin histogram entropy / log2(10);
     neighbour reads replicate the tile border."""
-    t = tiles.shape[1]
-    tp = _pad(tiles, 1, "edge")
-    bits = [(_shifted(tp, 1, t, dy, dx) >= tiles).to(torch.float32)
-            for dy, dx in _LBP_OFFSETS]
-    n_ones = sum(bits)
-    trans = sum(torch.abs(bits[i] - bits[i - 1]) for i in range(8))
-    label = torch.where(trans <= 2.0, n_ones, torch.full_like(n_ones, 9.0))
-
-    n = t * t
-    ent = torch.zeros(tiles.shape[0], dtype=torch.float32, device=tiles.device)
-    for v in range(10):
-        p = (label == v).to(torch.float32).sum(dim=(1, 2)) / n
-        ent = ent - p * torch.log2(p + 1e-10)
-    return ent / math.log2(10.0)
+    n = tiles.shape[1] * tiles.shape[2]
+    return _entropy10(_lbp_labels(tiles), lambda m: m.sum(dim=(1, 2)) / n)
 
 
-def gradient_variance(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
-    """phi3: Eq.(22) v / (v + 1), v = Var(Gx) + Var(Gy) over the tile."""
+def _gradient_variance(gx: torch.Tensor, gy: torch.Tensor, tile_mean) -> torch.Tensor:
+    """Eq.(22) v / (v + 1), v = Var(Gx) + Var(Gy) with `tile_mean`."""
 
     def var(t):
-        m = t.mean(dim=(1, 2))
-        m2 = (t * t).mean(dim=(1, 2))
-        return torch.clamp(m2 - m * m, min=0.0)
+        m = tile_mean(t)
+        return torch.clamp(tile_mean(t * t) - m * m, min=0.0)
 
     v = var(gx) + var(gy)
     return v / (v + 1.0)
 
 
-def euler_components(m: torch.Tensor) -> torch.Tensor:
-    """8-connected component count per tile via Gray's quad-pattern Euler
-    number over all (t+1)^2 windows of the zero-padded mask, K >= 1."""
+def gradient_variance(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
+    """phi3: Eq.(22) v / (v + 1), v = Var(Gx) + Var(Gy) over the tile."""
+    return _gradient_variance(gx, gy, lambda t: t.mean(dim=(1, 2)))
+
+
+def _euler_windows(m: torch.Tensor) -> torch.Tensor:
+    """Gray's quad-pattern Euler contribution (Q1 - Q3 - 2 QD) / 4 of each
+    2x2 window of the zero-padded mask (B, H, W) -> (B, H + 1, W + 1)."""
     mp = F.pad(m, (1, 1, 1, 1))
     idx = (mp[:, :-1, :-1] + 2.0 * mp[:, :-1, 1:] + 4.0 * mp[:, 1:, :-1]
            + 8.0 * mp[:, 1:, 1:]).to(torch.int32)
@@ -291,21 +348,33 @@ def euler_components(m: torch.Tensor) -> torch.Tensor:
         acc = torch.zeros(idx.shape, dtype=torch.float32, device=m.device)
         for v in vals:
             acc = acc + (idx == v).to(torch.float32)
-        return acc.sum(dim=(1, 2))
+        return acc
 
-    e = (count([1, 2, 4, 8]) - count([7, 11, 13, 14]) - 2.0 * count([6, 9])) / 4.0
-    return torch.clamp(torch.round(e), min=1.0)
+    return (count([1, 2, 4, 8]) - count([7, 11, 13, 14]) - 2.0 * count([6, 9])) / 4.0
 
 
-def contour_complexity(binmask: torch.Tensor) -> torch.Tensor:
-    """phi5: Eq.(24) 1 - 1/max(perim^2 / (4 pi area) / K, 1); empty tiles 0."""
-    boundary = torch.clamp(binmask - erode3(binmask), min=0.0)
-    area = binmask.sum(dim=(1, 2))
-    perim = boundary.sum(dim=(1, 2))
+def euler_components(m: torch.Tensor) -> torch.Tensor:
+    """8-connected component count per tile via Gray's quad-pattern Euler
+    number over all (t+1)^2 windows of the zero-padded mask, K >= 1."""
+    return torch.clamp(torch.round(_euler_windows(m).sum(dim=(1, 2))), min=1.0)
+
+
+def _phi5(area: torch.Tensor, perim: torch.Tensor, K) -> torch.Tensor:
+    """Eq.(24) 1 - 1/max(perim^2 / (4 pi area) / K, 1) (K None: 1); 0 where
+    the tile is empty."""
     ic = (perim * perim) / (4.0 * math.pi * area + 1e-6)
-    ic = ic / euler_components(binmask)
+    if K is not None:
+        ic = ic / K
     phi5 = 1.0 - 1.0 / torch.clamp(ic, min=1.0)
     return torch.where(area > 0, phi5, torch.zeros_like(phi5))
+
+
+def contour_complexity(binmask: torch.Tensor, contour_components: bool = True) -> torch.Tensor:
+    """phi5: Eq.(24) 1 - 1/max(perim^2 / (4 pi area) / K, 1), K = 1 without
+    `contour_components`; empty tiles 0."""
+    boundary = torch.clamp(binmask - erode3(binmask), min=0.0)
+    K = euler_components(binmask) if contour_components else None
+    return _phi5(binmask.sum(dim=(1, 2)), boundary.sum(dim=(1, 2)), K)
 
 
 def extract_tiles(gray: torch.Tensor, tile: int):
@@ -316,31 +385,150 @@ def extract_tiles(gray: torch.Tensor, tile: int):
     return t.reshape(B * ht * wt, tile, tile), ht, wt
 
 
-def phi_metrics_tiled(gray: torch.Tensor, tile: int):
-    """gray (B, Hc, Wc) -> five (B, ht, wt) metric maps (phi1 unhalved)."""
+def phi_metrics_tiled(gray: torch.Tensor, tile: int, canny_impl: str = "cv2compat",
+                      binarize_impl: str = "adaptive", contour_components: bool = True):
+    """gray (B, Hc, Wc) -> five (B, ht, wt) metric maps (phi1 unhalved),
+    every operator per tile (reference `morphology_lanes.py:395-434`)."""
     B = gray.shape[0]
     tiles, ht, wt = extract_tiles(gray, tile)
     gx, gy = sobel(tiles)
-    edge = canny_cv2compat(tiles)
-    binmask = adaptive_binarize(tiles)
+    edge = canny_legacy(tiles) if canny_impl == "legacy" else canny_cv2compat(tiles)
+    binmask = otsu_binarize(tiles) if binarize_impl == "otsu" else adaptive_binarize(tiles)
 
     def out(v):
         return v.reshape(B, ht, wt)
 
     return (out(fractal_dimension(edge, tile)), out(lbp_entropy(tiles)),
             out(gradient_variance(gx, gy)), out(edge.mean(dim=(1, 2))),
-            out(contour_complexity(binmask)))
+            out(contour_complexity(binmask, contour_components)))
+
+
+# ---------------------------------------------------------------------------
+# metric_mode='global': whole-image operators, per-tile statistics
+# (reference `morphology.py:41-291`, the row engine's functions)
+# ---------------------------------------------------------------------------
+
+
+def canny_cv2compat_image(gray: torch.Tensor, hysteresis_iters: int = 8) -> torch.Tensor:
+    """`canny_cv2compat` over whole (B, H, W) images with zero borders and
+    one Otsu threshold per image."""
+    b01 = iops.gaussian_blur(gray, 5, 1.0, mode="zero")
+    b255 = b01 * 255.0
+    thr255 = iops.otsu_threshold(b01) * 255.0
+    gx, gy = iops.sobel(b255, mode="zero")
+    nms = _canny_nms(torch.abs(gx) + torch.abs(gy), gx, gy)
+    return _hysteresis((nms > thr255).to(torch.float32), nms > 0.5 * thr255,
+                       max(1, hysteresis_iters))
+
+
+def canny_legacy_image(gray: torch.Tensor) -> torch.Tensor:
+    """`canny_legacy` over whole images: zero borders, L2 magnitude, Otsu
+    on the image's min-max normalized NMS, 2 hysteresis passes."""
+    blurred = iops.gaussian_blur(gray, 5, 1.0, mode="zero")
+    gx, gy = iops.sobel(blurred)
+    nms = _canny_nms(torch.sqrt(gx ** 2 + gy ** 2 + 1e-12), gx, gy)
+    nms_n = iops.normalize01(nms)
+    thr = iops.otsu_threshold(nms_n)
+    return _hysteresis((nms_n > thr).to(torch.float32), nms_n > 0.5 * thr, 2)
+
+
+def adaptive_binarize_image(gray: torch.Tensor, block: int = 11, C: float = 2.0) -> torch.Tensor:
+    """`adaptive_binarize` over whole images (the 11 x 11 Gaussian as one
+    replicate-padded conv)."""
+    g255 = gray * 255.0
+    sigma = 0.3 * ((block - 1) * 0.5 - 1) + 0.8
+    local_mean = iops.gaussian_blur(g255, block, sigma, mode="edge")
+    return (g255 > local_mean - C).to(torch.float32)
+
+
+def otsu_binarize_image(gray: torch.Tensor) -> torch.Tensor:
+    """1 above the image's Otsu threshold."""
+    return (gray > iops.otsu_threshold(gray)).to(torch.float32)
+
+
+def fractal_dimension_tiles(edge: torch.Tensor, tile: int) -> torch.Tensor:
+    """phi1 core from a whole edge map (B, Hc, Wc) -> (B, ht, wt): occupied
+    boxes per tile at each dyadic scale, then the weighted log-log slope."""
+    B, Hc, Wc = edge.shape
+    scales = _dyadic_scales(tile)
+    if len(scales) < 2:
+        return torch.ones((B, Hc // tile, Wc // tile), dtype=torch.float32,
+                          device=edge.device)
+    n = torch.stack([iops.avg_pool(iops.max_pool(edge, s), tile // s) * float((tile // s) ** 2)
+                     for s in scales], dim=0)  # (S, B, ht, wt)
+    return _fractal_slope(n, scales)
+
+
+def lbp_entropy_tiles(gray: torch.Tensor, tile: int) -> torch.Tensor:
+    """phi2 from a whole map: the uniform-LBP labels read their neighbours
+    across tile borders (the image border replicates), then a 10-bin
+    histogram entropy per tile."""
+    return _entropy10(_lbp_labels(gray), lambda m: iops.avg_pool(m, tile))
+
+
+def gradient_variance_tiles(gx: torch.Tensor, gy: torch.Tensor, tile: int) -> torch.Tensor:
+    """phi3 from whole gradient maps: Eq.(22) per tile."""
+    return _gradient_variance(gx, gy, lambda t: iops.avg_pool(t, tile))
+
+
+def euler_components_tiles(m: torch.Tensor, tile: int) -> torch.Tensor:
+    """Per-tile component count K >= 1 from a whole mask: each 2x2 window of
+    the zero-padded mask is attributed to the tile of its top-left pixel,
+    so the bottom and right window row fall away (the reference
+    surrogate's attribution, a documented residual it undercounts with)."""
+    B, Hc, Wc = m.shape
+    ht, wt = Hc // tile, Wc // tile
+    e = _euler_windows(m)[:, :ht * tile, :wt * tile]
+    return torch.clamp(torch.round(iops.avg_pool(e, tile) * float(tile * tile)), min=1.0)
+
+
+def contour_complexity_tiles(binmask: torch.Tensor, tile: int,
+                             contour_components: bool = True) -> torch.Tensor:
+    """phi5 from a whole mask: Eq.(24) per tile, the boundary eroded across
+    tile borders."""
+    boundary = torch.clamp(binmask - erode3(binmask), min=0.0)
+    K = euler_components_tiles(binmask, tile) if contour_components else None
+    return _phi5(iops.avg_pool(binmask, tile) * float(tile * tile),
+                 iops.avg_pool(boundary, tile) * float(tile * tile), K)
+
+
+def phi_metrics_global(gray: torch.Tensor, tile: int, canny_impl: str = "cv2compat",
+                       binarize_impl: str = "adaptive", contour_components: bool = True):
+    """gray (B, Hc, Wc) -> five (B, ht, wt) metric maps (phi1 unhalved),
+    the operators over whole images (reference `morphology.py:410-427`)."""
+    gx, gy = iops.sobel(gray)
+    edge = canny_legacy_image(gray) if canny_impl == "legacy" else canny_cv2compat_image(gray)
+    binmask = (otsu_binarize_image(gray) if binarize_impl == "otsu"
+               else adaptive_binarize_image(gray))
+    return (fractal_dimension_tiles(edge, tile), lbp_entropy_tiles(gray, tile),
+            gradient_variance_tiles(gx, gy, tile), iops.avg_pool(edge, tile),
+            contour_complexity_tiles(binmask, tile, contour_components))
+
+
+CANNY_IMPLS = ("cv2compat", "legacy")
+BINARIZE_IMPLS = ("adaptive", "otsu")
+METRIC_MODES = ("tiled", "global")
 
 
 def compute_phi_tiles(
-    features: torch.Tensor, grid_size: int = 8, downsample: int = 1,
+    features: torch.Tensor, grid_size: int = 8, canny_impl: str = "cv2compat",
+    binarize_impl: str = "adaptive", contour_components: bool = True,
+    metric_mode: str = "tiled", downsample: int = 1,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """features (B, H, W, C) NHWC (or a (B, H, W, 3) image) ->
     (phi (B, ht, wt, 8), dict of the five raw metrics).  Always float32.
 
+    canny_impl 'cv2compat' | 'legacy', binarize_impl 'adaptive' | 'otsu',
+    contour_components (phi5's Euler-K division) and metric_mode 'tiled' |
+    'global' are the reference's options (module docstring).
     downsample: run the metric operators on a 2^k average-pooled gray map;
     the factor degrades per scale so tile/downsample stays >= 4
     (reference `morphology.py:358-374`)."""
+    for name, value, allowed in (("canny_impl", canny_impl, CANNY_IMPLS),
+                                 ("binarize_impl", binarize_impl, BINARIZE_IMPLS),
+                                 ("metric_mode", metric_mode, METRIC_MODES)):
+        if value not in allowed:
+            raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
     with torch.no_grad():
         if not features.is_floating_point():
             features = features.to(torch.float32) / 255.0
@@ -362,7 +550,9 @@ def compute_phi_tiles(
                 tile //= ds
         gray = iops.normalize01(gray)
 
-        phi1, phi2, phi3, phi4, phi5 = phi_metrics_tiled(gray, tile)
+        metrics = phi_metrics_tiled if metric_mode == "tiled" else phi_metrics_global
+        phi1, phi2, phi3, phi4, phi5 = metrics(gray, tile, canny_impl, binarize_impl,
+                                               contour_components)
         phi1 = phi1 / 2.0
         phi = torch.stack(
             [phi1, phi2, phi3, phi4, phi5,
@@ -450,15 +640,25 @@ class MorphologicalComplexityAnalyzer(nn.Module):
     curriculum (`morphology_cv2.fit_feature_weights`); the inference path
     does not read it."""
 
-    def __init__(self, grid_size: int = 8, downsample: int = 1):
+    def __init__(self, grid_size: int = 8, canny_impl: str = "cv2compat",
+                 binarize_impl: str = "adaptive", contour_components: bool = True,
+                 metric_mode: str = "tiled", downsample: int = 1):
         super().__init__()
         self.grid_size = grid_size
+        self.canny_impl, self.binarize_impl = canny_impl, binarize_impl
+        self.contour_components, self.metric_mode = contour_components, metric_mode
         self.downsample = downsample
         self.complexity_mlp = ComplexityMLP()
         self.register_buffer("feature_weights", torch.full((5,), 0.2))
 
+    def _phi(self, features: torch.Tensor) -> torch.Tensor:
+        return compute_phi_tiles(
+            features, grid_size=self.grid_size, canny_impl=self.canny_impl,
+            binarize_impl=self.binarize_impl, contour_components=self.contour_components,
+            metric_mode=self.metric_mode, downsample=self.downsample)[0]
+
     def forward(self, features: torch.Tensor) -> torch.Tensor:
-        phi, _ = compute_phi_tiles(features, self.grid_size, self.downsample)
+        phi = self._phi(features)
         B, ht, wt, _ = phi.shape
         c = self.complexity_mlp(phi.reshape(-1, 8)).reshape(B, ht, wt)
         return torch.clamp(bilateral_filter(c), 0.0, 1.0)
@@ -467,5 +667,4 @@ class MorphologicalComplexityAnalyzer(nn.Module):
         """Deterministic Eq.(8) per-image complexity for dataset sorting
         (Algorithm 3 line 1) with this analyzer's phi and `feature_weights`:
         (B,) in [0, 1]."""
-        phi, _ = compute_phi_tiles(features, self.grid_size, self.downsample)
-        return _eq8(phi, self.feature_weights)
+        return _eq8(self._phi(features), self.feature_weights)

@@ -238,7 +238,7 @@ class LearnedSoftMask(nn.Module):
         logits = self.Conv_1(F.relu(self.Conv_0(feats)))
         m = torch.softmax(logits, dim=1)[:, 0]                     # (B, Ht, Wt)
         m = iops.upsample_nearest(m, (H, W))
-        m = iops.gaussian_blur_edge(m, self.kernel_size, self.kernel_size / 3.0)
+        m = iops.gaussian_blur(m, self.kernel_size, self.kernel_size / 3.0, mode="edge")
         return m[..., None]
 
 

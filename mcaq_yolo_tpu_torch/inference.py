@@ -41,6 +41,24 @@ def auto_pre_topk(max_det: int, conf_threshold: float = 0.25) -> int:
     return 256 if conf_threshold >= 0.25 else 512
 
 
+def deployed_program(model: MCAQYOLO, images: torch.Tensor, num_classes: int,
+                     conf_threshold: float = 0.25, iou_threshold: float = 0.45,
+                     max_det: int = 1000, pre_topk: Optional[int] = None,
+                     temperature: float = 1.0):
+    """The deployed program: the quantized forward at `temperature`, then
+    decode + NMS, on (B, S, S, 3) uint8 -> (boxes, scores, classes, valid,
+    avg_bits, the P3 complexity map, the P3 bit map, the above-gate
+    candidate count per image).  `pre_topk` None: `auto_pre_topk`."""
+    if pre_topk is None:
+        pre_topk = auto_pre_topk(max_det, conf_threshold)
+    raw, aux = model(images, temperature=temperature, quantize=True)
+    *det, gated_count = decode_and_nms(
+        raw, num_classes, conf_threshold=conf_threshold, iou_threshold=iou_threshold,
+        max_det=max_det, pre_topk=pre_topk, with_pool_stats=True)
+    return tuple(det) + (aux["avg_bits"], aux["complexity_map"][0], aux["bit_map"][0],
+                         gated_count)
+
+
 class Predictor:
     """Single-image / batch MCAQ-YOLO inference on one device.
 
@@ -132,14 +150,11 @@ class Predictor:
 
     @torch.inference_mode()
     def _predict_device(self, images: torch.Tensor):
-        """The deployed program: forward + decode + NMS on (B, S, S, 3) uint8."""
-        raw, aux = self.model(images, temperature=self.deploy_temperature, quantize=True)
-        *det, gated_count = decode_and_nms(
-            raw, self.num_classes, conf_threshold=self.conf_threshold,
-            iou_threshold=self.iou_threshold, max_det=self.max_det,
-            pre_topk=self.pre_topk, with_pool_stats=True)
-        return tuple(det) + (aux["avg_bits"], aux["complexity_map"][0],
-                             aux["bit_map"][0], gated_count)
+        """The deployed program (`deployed_program`) at this Predictor's
+        gate, pool and deploy temperature."""
+        return deployed_program(self.model, images, self.num_classes, self.conf_threshold,
+                                self.iou_threshold, self.max_det, self.pre_topk,
+                                self.deploy_temperature)
 
     def _check_pool_headroom(self, gated_count: np.ndarray) -> None:
         """Warn (every time) when the above-gate candidates fill the pool."""

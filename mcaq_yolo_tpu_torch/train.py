@@ -589,7 +589,7 @@ class Trainer:
         with torch.no_grad():
             for i, batch in enumerate(self.train_loader):
                 x = torch.as_tensor(batch["image"]).to(self.device)
-                phi, _ = compute_phi_tiles(x, self.model.grid_size)
+                phi, _ = compute_phi_tiles(x, grid_size=self.model.grid_size)
                 c = analyzer.complexity_mlp(phi.reshape(-1, 8))
                 phis.append(phi.reshape(-1, 8).cpu().numpy())
                 cs.append(c.reshape(-1).cpu().numpy())

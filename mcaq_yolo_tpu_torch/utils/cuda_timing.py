@@ -14,6 +14,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
+BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 # per element: divide, add, rint, 2 clamps, subtract, multiply, mask multiply
 QUANT_OPS_PER_ELEMENT = 8
 # distinct copies of a kernel's inputs cycled in one timed round: at the

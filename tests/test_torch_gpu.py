@@ -26,7 +26,10 @@ native letterbox builds and agrees with its float variant (and cv2's
 resize, where installed); `evaluate` and the validation loss launch the
 kernel three times per quantized forward and never in Stage 1.  The
 evidence scripts' forward with bit maps supplied from outside (own,
-permuted, constant) is bitwise the plain path's, in 3 launches."""
+permuted, constant) is bitwise the plain path's, in 3 launches.  Every
+morphology option agrees with its CPU run, and the profiling layer's
+`component_breakdown` times the card with `with_mcaq` bitwise equal to
+the forward's features; its kernel counter is exact."""
 
 import numpy as np
 import pytest
@@ -391,3 +394,71 @@ def test_external_bit_maps_through_the_kernel(cuda, maps):
     if maps == "own":
         for a, b in zip(out, raw):
             assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("canny_impl", ["cv2compat", "legacy"])
+@pytest.mark.parametrize("binarize_impl", ["adaptive", "otsu"])
+@pytest.mark.parametrize("contour_components", [True, False])
+@pytest.mark.parametrize("metric_mode", ["tiled", "global"])
+def test_morphology_options_cuda_match_cpu(cuda, canny_impl, binarize_impl,
+                                           contour_components, metric_mode):
+    """Each morphology option on the card against its CPU run: phi within
+    1e-5 on at least 99% of the entries (the Canny-tie class of the CPU
+    tests against JAX: a last-ulp difference on an exactly symmetric
+    gradient flips an edge pixel); the global mode's convolutions run in
+    full float32 (TF32 off inside `image_ops`)."""
+    from mcaq_yolo_tpu_torch.core.morphology import compute_phi_tiles
+
+    kw = dict(canny_impl=canny_impl, binarize_impl=binarize_impl,
+              contour_components=contour_components, metric_mode=metric_mode)
+    f = torch.from_numpy(np.random.default_rng(5).normal(0, 1, (2, 64, 96, 8))
+                         .astype(np.float32))
+    ref, _ = compute_phi_tiles(f, **kw)
+    out, _ = compute_phi_tiles(f.to(cuda), **kw)
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    far = (out.cpu() - ref).abs() > 1e-5
+    assert float(far.float().mean()) <= 0.01
+
+
+@pytest.mark.gpu
+def test_component_breakdown_on_cuda(cuda):
+    """Positive stage times on the card, and `with_mcaq`'s features (through
+    the kernel) equal to the ones the forward feeds the neck, bitwise."""
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+    from mcaq_yolo_tpu_torch.utils import profiling
+
+    model = MCAQYOLO(num_classes=80, morph_downsample=2, dtype=torch.bfloat16, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (2, 128, 128, 3),
+                                                           dtype=np.uint8)).to(cuda)
+    before = sq.spatial_quantize.launches
+    bd = profiling.component_breakdown(model, x, iters=2, cost=True)
+    torch.cuda.synchronize()
+    assert sq.spatial_quantize.launches - before == 3 * 2 * (3 + 2 + 1)
+    assert bd["full_ms"] > 0 and bd["backbone_ms"] > 0 and bd["device"].startswith("NVIDIA")
+    assert bd["full_gflops"] > 0
+    progs = profiling.breakdown_programs(model)
+    with torch.inference_mode():
+        _, aux = progs["full"](x)
+        q = progs["with_mcaq"](x)
+    for a, b in zip(aux["quantized_features"], q):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_counts_exactly(cuda):
+    """`profiling.cuda_kernels` counts a call's kernels exactly (two
+    elementwise ops: 2 kernels; the per-tile Otsu and the whole per-tile
+    metric pipeline capture, every count the same in a fresh capture)."""
+    from mcaq_yolo_tpu_torch.core import morphology as tm
+    from mcaq_yolo_tpu_torch.utils import profiling
+
+    a = torch.rand(1000, device=cuda)
+    assert profiling.cuda_kernels(lambda t: (t + 1.0) * 2.0, a) == 2
+    gray = torch.rand(2, 32, 32, device=cuda)
+    tiles = tm.extract_tiles(gray, 8)[0]
+    with torch.inference_mode():
+        for fn, arg in ((tm.otsu_threshold, tiles),
+                        (lambda g: tm.phi_metrics_tiled(g, 8), gray)):
+            n = profiling.cuda_kernels(fn, arg)
+            assert n > 0 and profiling.cuda_kernels(fn, arg) == n

@@ -33,7 +33,10 @@ _PROBE = textwrap.dedent("""
                  "export", "utils.model_utils", "utils.visualization",  # deployment
                  "scripts.quality_evidence", "scripts.quality_assemble",  # evidence
                  "scripts.m3_permutation", "scripts.m4_variation_gain",
-                 "scripts.downsample_fidelity", "scripts.pretopk_equivalence"):
+                 "scripts.downsample_fidelity", "scripts.pretopk_equivalence",
+                 "scripts.backend_agreement", "scripts.profile_morphology",  # diagnostics
+                 "scripts.roofline", "scripts.perf_sweep_diag", "scripts.train_breakdown",
+                 "utils.profiling"):
         assert "mcaq_yolo_tpu_torch." + name in names, name
     import torch
     assert hasattr(torch.ops.mcaq, "spatial_quantize")  # registered at import
