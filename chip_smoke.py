@@ -107,7 +107,22 @@ Phases (any failure exits non-zero and prints no result):
      time; a short batch sweep; the morphology operators at P3 / P4 / P5
      (bs 32) with their CUDA kernel counts; the yolov8n bs-16 train-step
      breakdown (its backward counted, its bound under its time); the
-     backend-agreement arms at 16 images, 256 px; one trace with kernels.
+     backend-agreement arms at 16 images, 256 px; one trace with kernels;
+ 10. multi-device: two ranks that share the card over gloo (NCCL refuses
+     two ranks on one GPU; a file store in the work directory), each a
+     spawned process, against the one-rank program on the same global
+     batches, float32 with TF32 off: 'dp' and 'fsdp' training over phase
+     5's three one-batch epochs (bs 16 global, KD), with the first loss,
+     the parameters' relative L2 and the BatchNorm statistics held to the
+     stated bounds and fsdp's sharded fraction equal to the rule's;
+     `Predictor(data_parallel=True)` on 32 images in chunks of 11 (12 per
+     forward, the tail padded) with the same detections and confidences
+     within rtol 2e-5 / atol 2e-6 and 3 launches per rank per forward;
+     distributed `evaluate` of the serving model (phase 6's best.ckpt
+     detects nothing there) on phase 6's 32 val images at Stage 3, labelled
+     with the one-rank program's detections of score >= 0.25 so that the
+     mAP moves with every detection, with the one-rank mAP (cuDNN off, as in
+     serving's check) and 3 launches per rank per forward.
 
 Output: JSON lines; before the last, the `{"kernels": [...]}` summary; the
 last line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1850,6 +1865,331 @@ def phase_diagnostics(device, gpu: str, workdir: Path):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: multi-device training and serving
+# ---------------------------------------------------------------------------
+
+MD_RANKS = 2            # processes sharing the one card over gloo
+MD_SERVE, MD_CHUNK = 32, 11   # DP serving: 32 images, chunks of 11 (rounded up to 12)
+# bounds of the 2-rank programs against the one-rank program on the same
+# global batch (float32, TF32 off, deterministic cuDNN): the first step's
+# loss; the parameters after the steps, |theta_2 - theta_1| over the steps'
+# own movement |theta_1 - theta_0| (AdamW's update is normalized per
+# element, so a gradient that a quantization step flips in Stage 3 moves
+# its element by ~lr the other way; the raw relative L2 is printed too);
+# the BatchNorm running statistics (max |diff| over max |x|); the serving
+# confidences (JAX's DP bound, tests/test_parallel.py:171)
+MD_LOSS_RTOL, MD_STEP_REL, MD_STATS_RTOL = 1e-4, 5e-2, 1e-3
+MD_CONF_RTOL, MD_CONF_ATOL = 2e-5, 2e-6
+
+
+def _md_train(mode: str, work: Path, device, teacher: str, mesh):
+    """Phase 5's training config in float32 over three one-batch epochs
+    (Stage 1, then Stage 3 twice) on this rank's rows of the global batch
+    of 16: the per-epoch metrics, the parameters and BatchNorm statistics
+    after, and (fsdp) the placed fraction of parameter elements."""
+    import numpy as np
+
+    from mcaq_yolo_tpu_torch.data.synthetic import synthetic_batches
+    from mcaq_yolo_tpu_torch.models.weights_io import param_leaves, to_jax_variables
+    from mcaq_yolo_tpu_torch.train import Trainer
+
+    config = {
+        "epochs": 3, "batch_size": TRAIN_BATCH, "learning_rate": 1e-3, "seed": 0,
+        "output_dir": str(work / f"train_{mode}"),
+        "model": {"name": "yolov8n", "num_classes": 80, "teacher_path": teacher},
+        "data": {"img_size": IMG, "max_boxes": 128}, "morphology": {"downsample": 2},
+        "quantization": {"bit_mapping": "mlp", "monotone_param": "softplus"},
+        "curriculum": {"warmup_epochs": 0, "transition_epochs": 0},
+        "scheduler": {"warmup_epochs": 1}, "distillation": {"enabled": True},
+        "training": {"amp": False, "parallel": mode},
+    }
+    batches = synthetic_batches(1, TRAIN_BATCH, IMG, 80, max_boxes=128,
+                                boxes_per_image=(5, 30), seed=3)
+    trainer = Trainer(config, batches, device=device)
+    flat = lambda tree: np.concatenate([np.asarray(v, np.float64).ravel()  # noqa: E731
+                                        for v in _tree_leaves(tree)])
+    start = flat(to_jax_variables(trainer.model)["params"])
+    epochs = [trainer.train_epoch(e) for e in range(3)]
+    leaves = [p for _, p, _ in param_leaves(trainer.model)]
+    placed = sum(p.numel() for p in leaves if hasattr(p, "placements")) / sum(
+        p.numel() for p in leaves)
+    variables = to_jax_variables(trainer.model)  # whole tensors (a collective under fsdp)
+    return {"epochs": epochs, "start": start, "params": flat(variables["params"]),
+            "stats": flat(variables["batch_stats"]), "placed_fraction": placed,
+            "rule_fraction": _rule_fraction(trainer)}
+
+
+def _tree_leaves(tree):
+    for k in sorted(tree):
+        v = tree[k]
+        yield from (_tree_leaves(v) if isinstance(v, dict) else [v])
+
+
+def _rule_fraction(trainer) -> float:
+    """The fraction of parameter elements the FSDP rule shards on this mesh."""
+    from mcaq_yolo_tpu_torch.parallel import fsdp
+    from mcaq_yolo_tpu_torch.parallel.mesh import mesh_size
+
+    dims = fsdp.fsdp_shardings(trainer.model, trainer.mesh)
+    n = sum(p.numel() for p in dims)
+    return 0.0 if mesh_size(trainer.mesh) == 1 else sum(
+        p.numel() for p, d in dims.items() if d is not None) / n
+
+
+def _md_cases(work: Path, device, mesh, inputs: dict) -> dict:
+    """Every part of phase 10 on this rank (one rank: mesh None), each
+    part's wall seconds and spatial_quant launches counted from 0 just
+    before it."""
+    import numpy as np
+    import torch
+
+    from mcaq_yolo_tpu_torch.data.dataset import DataLoader, YOLODataset
+    from mcaq_yolo_tpu_torch.inference import Predictor
+    from mcaq_yolo_tpu_torch.models.weights_io import COLLECTIONS, load_jax_variables
+    from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
+    from mcaq_yolo_tpu_torch.train import Trainer
+    from mcaq_yolo_tpu_torch.utils.checkpoint import load_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # no atomics in the backward
+    out, wall = {}, {}
+
+    def timed_part(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        wall[name] = round(time.perf_counter() - t0, 3)
+
+    for mode in ("dp", "fsdp") if mesh is not None else ("dp",):
+        timed_part(mode, lambda: _md_train(mode, work, device, inputs["teacher"], mesh))
+
+    def serve():
+        pred = Predictor(inputs["serve_ckpt"], conf_threshold=0.25, iou_threshold=0.45,
+                         max_det=300, dtype=torch.bfloat16, data_parallel=True, device=device)
+        images = serving_images(seed=11, count=MD_SERVE // 8)
+        chunk = MD_CHUNK if mesh is not None else -(-MD_CHUNK // MD_RANKS) * MD_RANKS
+
+        def dets(res):
+            return [(np.array([d["class_id"] for d in r["detections"]]),
+                     np.array([d["confidence"] for d in r["detections"]])) for r in res]
+
+        sq.spatial_quantize.launches = 0
+        deployed = dets(pred.predict_batch(images, batch_size=chunk))
+        torch.cuda.synchronize()
+        launches = sq.spatial_quantize.launches
+        # cuDNN picks its algorithm by the batch, so one image rounds
+        # differently in a 6- and a 12-image batch; PyTorch's own
+        # convolution (im2col and a GEMM per image) does not
+        torch.backends.cudnn.enabled = False
+        try:
+            per_image = dets(pred.predict_batch(images, batch_size=chunk))
+        finally:
+            torch.backends.cudnn.enabled = True
+        return {"launches": launches, "dets": deployed, "dets_no_cudnn": per_image}
+
+    timed_part("serving", serve)
+
+    def evaluate():
+        val = YOLODataset(inputs["val_dir"], IMG, 128, augment=False)
+        batches = [{k: v for k, v in b.items() if k != "paths"}
+                   for b in DataLoader(val, TRAIN_BATCH, shuffle=False, drop_last=False)]
+        config = {"epochs": 3, "batch_size": TRAIN_BATCH, "seed": 0,
+                  "output_dir": str(work / "eval"),
+                  "model": {"name": "yolov8n", "num_classes": 80},
+                  "data": {"img_size": IMG}, "morphology": {"downsample": 2},
+                  "curriculum": {"enabled": False, "warmup_epochs": 0, "transition_epochs": 0},
+                  "distillation": {"enabled": False}, "training": {"amp": False}}
+        trainer = Trainer(config, batches[:1], batches, device=device)
+        payload = load_checkpoint(inputs["eval_ckpt"])
+        load_jax_variables(trainer.model, {c: payload[c] for c in COLLECTIONS if c in payload})
+        if mesh is None:  # the labels: the one-rank program's confident detections
+            _md_label(trainer, batches, inputs["val_labels"])
+        with np.load(inputs["val_labels"]) as labels:
+            for i, b in enumerate(batches):
+                b.update({k: labels[k][i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH] for k in labels})
+        sq.spatial_quantize.launches = 0
+        res = trainer.evaluate(2)  # Stage 3: quantized
+        torch.cuda.synchronize()
+        return {"result": res, "launches": sq.spatial_quantize.launches,
+                "forwards": len(batches)}
+
+    # without cuDNN, as serving's check: its algorithm follows the batch (16
+    # images in one rank, 8 in each of two), PyTorch's own convolution does not
+    with torch.backends.cudnn.flags(enabled=False):
+        timed_part("evaluate", evaluate)
+    out["wall_s"] = wall
+    return out
+
+
+def _md_label(trainer, batches, path: str, conf: float = 0.25) -> None:
+    """Label the val images with the one-rank eval program's detections of
+    score >= conf at Stage 3 (as tests/test_torch_trainer_loop.py does), so
+    that evaluate's mAP is far from 0 and moves with every detection."""
+    import numpy as np
+    import torch
+
+    images = torch.as_tensor(np.concatenate([b["image"] for b in batches])).to(trainer.device)
+    temp = trainer.curriculum.get_effective_temperature(2)
+    boxes, scores, classes, valid, _ = (t.cpu().numpy() for t in trainer.eval_step(images, temp))
+    n, slots = len(images), batches[0]["gt_boxes"].shape[1]
+    gt = {"gt_boxes": np.zeros((n, slots, 4), np.float32),
+          "gt_classes": np.zeros((n, slots), np.int32), "gt_mask": np.zeros((n, slots), bool)}
+    for i in range(n):
+        keep = np.flatnonzero(valid[i] & (scores[i] >= conf))[:slots]
+        gt["gt_boxes"][i, :len(keep)] = boxes[i][keep]
+        gt["gt_classes"][i, :len(keep)] = classes[i][keep]
+        gt["gt_mask"][i, :len(keep)] = True
+    np.savez(path, **gt)
+
+
+def _md_rank_main(work: str, rank: int, inputs: dict) -> None:
+    """One rank of phase 10 (a spawned process): joins the gloo group
+    through a file store in `work`, runs the parts, writes rank{r}.pkl."""
+    import datetime
+    import faulthandler
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    faulthandler.enable()  # a native crash prints the Python stack
+    sys.path.insert(0, str(ROOT))
+    from mcaq_yolo_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{work}/store", rank=rank,
+                            world_size=MD_RANKS, timeout=datetime.timedelta(seconds=300))
+    try:
+        out = _md_cases(Path(work), torch.device("cuda", 0), make_mesh(device_type="cuda"),
+                        inputs)
+    finally:
+        dist.destroy_process_group()
+    with open(Path(work) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def phase_multi_device(device, workdir: Path, gpu: str, inputs: dict) -> dict:
+    """Two ranks sharing the card over gloo (NCCL refuses two ranks on one
+    GPU) against the one-rank program on the same global batches: 'dp' and
+    'fsdp' training, DP serving, distributed evaluate.  The kernels were
+    built in phase 1; the spawned ranks load them."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    work = workdir / "multi_device"
+    work.mkdir()
+    inputs = dict(inputs, val_labels=str(work / "val_labels.npz"))
+    t0 = time.perf_counter()
+    one = _md_cases(work / "one", device, None, inputs)
+    t_one = time.perf_counter() - t0
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_md_rank_main, args=(str(work), r, inputs))
+             for r in range(MD_RANKS)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    t_ranks = time.perf_counter() - t0
+    check(all(p.exitcode == 0 for p in procs),
+          f"multi-device ranks exited {[p.exitcode for p in procs]}")
+    ranks = []
+    for r in range(MD_RANKS):
+        with open(work / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+
+    def rel_l2(a, b):
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+    def stats_err(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+    def same_dets(x, y, exact):
+        return all(np.array_equal(a[0], b[0]) and (
+            np.array_equal(a[1], b[1]) if exact else
+            np.allclose(a[1], b[1], rtol=MD_CONF_RTOL, atol=MD_CONF_ATOL))
+            for a, b in zip(x, y))
+
+    ref = one["dp"]
+    training = {}
+    for mode in ("dp", "fsdp"):
+        got = ranks[0][mode]
+        loss0 = (got["epochs"][0]["loss_total"], ref["epochs"][0]["loss_total"])
+        training[mode] = {
+            "first_loss": [round(v, 6) for v in loss0],
+            "first_loss_rel": abs(loss0[0] - loss0[1]) / abs(loss0[1]),
+            "losses": [round(e["loss_total"], 6) for e in got["epochs"]],
+            "losses_one_rank": [round(e["loss_total"], 6) for e in ref["epochs"]],
+            "param_rel_l2": rel_l2(got["params"], ref["params"]),
+            "param_diff_over_step": float(np.linalg.norm(got["params"] - ref["params"])
+                                          / np.linalg.norm(ref["params"] - ref["start"])),
+            "bn_stats_rel": stats_err(got["stats"], ref["stats"]),
+            "ranks_equal": bool(np.array_equal(ranks[1][mode]["params"], got["params"])),
+            "placed_fraction": got["placed_fraction"], "rule_fraction": got["rule_fraction"],
+        }
+    serve_one, serve_two = one["serving"], ranks[0]["serving"]
+    conf_close = same_dets(serve_two["dets_no_cudnn"], serve_one["dets_no_cudnn"], False)
+    conf_bitwise = same_dets(serve_two["dets_no_cudnn"], serve_one["dets_no_cudnn"], True)
+    cudnn_differ = sum(not same_dets([a], [b], False)
+                       for a, b in zip(serve_two["dets"], serve_one["dets"]))
+    forwards = -(-MD_SERVE // (-(-MD_CHUNK // MD_RANKS) * MD_RANKS))
+    ev_one, ev_two = one["evaluate"], ranks[0]["evaluate"]
+    emit({"phase": "multi_device", "gpu": gpu,
+          "ranks": f"{MD_RANKS} ranks sharing one card over gloo",
+          "training": training,
+          "bounds": {"first_loss_rel": MD_LOSS_RTOL, "param_diff_over_step": MD_STEP_REL,
+                     "bn_stats_rel": MD_STATS_RTOL,
+                     "serving_confidence": [MD_CONF_RTOL, MD_CONF_ATOL]},
+          "dp_serving": {"images": MD_SERVE, "batch_size": MD_CHUNK,
+                         "forwards_per_rank": forwards,
+                         "launches_per_rank": [r["serving"]["launches"] for r in ranks],
+                         "detections": sum(len(d[0]) for d in serve_two["dets"]),
+                         "equal_within_bound_without_cudnn": conf_close,
+                         "bitwise_without_cudnn": conf_bitwise,
+                         "images_differing_with_cudnn": cudnn_differ},
+          "dp_evaluate": {"one_rank": ev_one["result"], "two_ranks": ev_two["result"],
+                          "forwards_per_rank": ev_two["forwards"],
+                          "launches_per_rank": [r["evaluate"]["launches"] for r in ranks]},
+          "wall_s": {"one_rank": round(t_one, 3), "ranks": round(t_ranks, 3),
+                     "parts_one_rank": one["wall_s"], "parts_rank0": ranks[0]["wall_s"]}})
+    for mode, t in training.items():
+        check(t["first_loss_rel"] <= MD_LOSS_RTOL, f"{mode}: first loss {t['first_loss']}")
+        check(t["param_diff_over_step"] <= MD_STEP_REL,
+              f"{mode}: parameters {t['param_diff_over_step']:.3g} of the steps' movement")
+        check(t["bn_stats_rel"] <= MD_STATS_RTOL, f"{mode}: BN statistics {t['bn_stats_rel']:.3g}")
+        check(t["ranks_equal"], f"{mode}: the two ranks hold different parameters")
+    check(training["fsdp"]["placed_fraction"] == training["fsdp"]["rule_fraction"] > 0.9,
+          "fsdp placed another fraction than the rule's")
+    check(training["dp"]["placed_fraction"] == 0.0, "dp placed a DTensor")
+    check(all(same_dets(r["serving"]["dets"], serve_two["dets"], True) for r in ranks),
+          "the ranks returned different lists")
+    check(conf_close, "DP serving (per-image convolutions) differs from one rank: counts, "
+                      "classes or confidences outside rtol 2e-5, atol 2e-6")
+    check(all(r["serving"]["launches"] == 3 * forwards for r in ranks),
+          f"DP serving launched {[r['serving']['launches'] for r in ranks]} times per rank "
+          f"in {forwards} forwards (expected 3 each)")
+    check(ev_one["result"]["map50"] > 0.2, f"the labelled evaluate is not informative: {ev_one}")
+    check(all(ev_two["result"][k] == ev_one["result"][k] for k in ("map50", "map50_95"))
+          and abs(ev_two["result"]["avg_bits"] - ev_one["result"]["avg_bits"])
+          <= 1e-6 * ev_one["result"]["avg_bits"],  # a mean of the ranks' means
+          "distributed evaluate differs from one rank")
+    check(all(r["evaluate"]["launches"] == 3 * ev_two["forwards"] for r in ranks),
+          "distributed evaluate's launches are not 3 per forward per rank")
+    return {"dp_serving": serve_two["launches"], "dp_evaluate": ev_two["launches"]}
+
+
 def _numbers(tree, skip=("spearman_rho", "spearman_p", "quartiles")):
     """The numbers of a result tree, without M4's rank test and quartile
     CIs (undefined, NaN, when every per-image gain is equal)."""
@@ -1914,6 +2254,12 @@ def main() -> int:
         lap("8_evidence_scripts")
         path_launches.update(phase_diagnostics(device, gpu, Path(tmp)))
         lap("9_diagnostics")
+        path_launches.update(phase_multi_device(device, Path(tmp), gpu, {
+            "serve_ckpt": str(Path(tmp) / "mcaq_yolov8n.ckpt"),
+            "teacher": str(Path(tmp) / "teacher.msgpack"),
+            "eval_ckpt": str(Path(tmp) / "mcaq_yolov8n.ckpt"),
+            "val_dir": str(Path(tmp) / "ds" / "images" / "val")}))
+        lap("10_multi_device")
     emit({"phase": "wall_s", "gpu": gpu, **wall, "total": round(sum(wall.values()), 3)})
 
     emit({"kernels": [{

@@ -18,6 +18,15 @@ arithmetic literally, var = max(0, E[x^2] - E[x]^2) and
 (x - mean) * (rsqrt(var + eps) * scale) + bias: the mapper's continuous bits
 feed the loss, so it is held to the reference more closely.  Subclasses of
 the torch modules, so `models/weights_io.py` maps them like any BatchNorm.
+
+`data_group` (set by `parallel.mesh.reduced_over`; None = one rank): the
+training statistics are the global batch's over the ranks of the group,
+as the JAX program's are under `jit` (sync-BN): one collective of the
+per-channel sums and the count gives the global mean, a second one the
+global centered sum of squares (BatchNorm2d) or of the squares
+(BatchNorm1d, flax's arithmetic), both differentiable, so the gradient
+flows through the global mean and variance.  The running update is the
+same rule on the global statistics, identical on every rank.
 """
 
 from __future__ import annotations
@@ -26,8 +35,18 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .parallel.mesh import all_sum
+
 
 class _FlaxStatsMixin:
+    data_group = None  # the process group of the data-parallel batch
+
+    def _group_sums(self, *parts):
+        """Each 1-D part summed over the group, in one differentiable
+        collective."""
+        total = all_sum(torch.cat(parts), self.data_group)
+        return total.split([p.shape[0] for p in parts])
+
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
         if not training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
@@ -45,8 +64,14 @@ class BatchNorm1d(_FlaxStatsMixin, nn.BatchNorm1d):
 
     def _train_forward(self, x):
         xf = x.to(torch.float32)
-        mean = xf.mean(dim=0)
-        var = torch.maximum((xf * xf).mean(dim=0) - mean * mean, xf.new_zeros(()))
+        if self.data_group is None:
+            mean = xf.mean(dim=0)
+            mean2 = (xf * xf).mean(dim=0)
+        else:
+            s1, s2, n = self._group_sums(xf.sum(dim=0), (xf * xf).sum(dim=0),
+                                         xf.new_full((1,), float(xf.shape[0])))
+            mean, mean2 = s1 / n, s2 / n
+        var = torch.maximum(mean2 - mean * mean, xf.new_zeros(()))
         y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         return y, mean.detach(), var.detach()
 
@@ -55,7 +80,18 @@ class BatchNorm2d(_FlaxStatsMixin, nn.BatchNorm2d):
     """(N, C, H, W) BatchNorm; flax momentum m is `momentum=1 - m` here."""
 
     def _train_forward(self, x):
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.to(torch.float32), dim=(0, 2, 3), correction=0)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
-        return y, mean, var
+        if self.data_group is None:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.to(torch.float32), dim=(0, 2, 3), correction=0)
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            return y, mean, var
+        xf = x.to(torch.float32)
+        s1, n = self._group_sums(xf.sum(dim=(0, 2, 3)),
+                                 xf.new_full((1,), float(xf[:, 0].numel())))
+        mean = s1 / n
+        d = xf - mean[None, :, None, None]
+        (ss,) = self._group_sums((d * d).sum(dim=(0, 2, 3)))
+        var = ss / n
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = d * inv[None, :, None, None] + self.bias[None, :, None, None]
+        return y.to(x.dtype), mean.detach(), var.detach()

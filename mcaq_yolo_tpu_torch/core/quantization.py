@@ -33,6 +33,16 @@ not in its Pallas kernel; here it is PyTorch ops with autograd.
 
 `LearnedRoundingQuantization` (AdaRound-style, inference only) is kept for
 parity with the reference, which never trains it either.
+
+`data_group` (set by `parallel.mesh.reduced_over`; None = one rank): every
+range taken from the batch is the global batch's over the ranks of the
+group, as under the JAX package's `jit`: the per-channel min/max (the EMA
+step and the range the kernel quantizes with) by exact MIN / MAX
+collectives, the entropy histogram over the global [min, max] with its
+counts summed, the percentiles of the gathered values, the MSE grid's
+errors summed.  The frozen and running-statistics ranges need no
+collective; the batch min/max is still reduced there (it is selected on
+the device, so the forward never waits on the host).
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ import torch.nn.functional as F
 
 from .. import initializers as init
 from ..ops import spatial_quant
+from ..parallel.mesh import all_gather_cat, all_max, all_min, all_sum, group_size
 from . import image_ops as iops
 from .ste import clip, ste
 
@@ -138,17 +149,19 @@ class LearnedRoundingQuantization(nn.Module):
         return x_floor + a * (torch.ceil(x) - x_floor)
 
 
-def batch_histogram(x: torch.Tensor, bins: int = HISTOGRAM_BINS) -> torch.Tensor:
+def batch_histogram(x: torch.Tensor, bins: int = HISTOGRAM_BINS, group=None) -> torch.Tensor:
     """Normalized histogram of float32 x over its own [min, max] (reference
     `_batch_histogram`, `quantization.py:305-315`): bin int32(t * bins) of
     t = (x - min) / max(max - min, 1e-12) clipped to [0, 1].  Counted
     exactly in int64 (the reference adds 1.0 per element in float32, the
-    same up to 2^24 per bin)."""
+    same up to 2^24 per bin).  With a `group`, x is this rank's slice of
+    the batch: the range and the counts are the whole batch's."""
     flat = x.reshape(-1)
     lo, hi = torch.aminmax(flat)
+    lo, hi = all_min(lo, group), all_max(hi, group)
     t = torch.clamp((flat - lo) / torch.clamp(hi - lo, min=1e-12), 0.0, 1.0)
     idx = torch.clamp((t * bins).to(torch.int32), 0, bins - 1)
-    h = torch.bincount(idx, minlength=bins).to(torch.float32)
+    h = all_sum(torch.bincount(idx, minlength=bins), group).to(torch.float32)
     return h / torch.clamp(h.sum(), min=1.0)
 
 
@@ -182,7 +195,7 @@ def mse_alphas(device=None) -> torch.Tensor:
     return torch.cat([a, torch.ones(1)]).to(device)
 
 
-def calibrate_mse(x: torch.Tensor, chunk_elements: int = 1 << 25):
+def calibrate_mse(x: torch.Tensor, chunk_elements: int = 1 << 25, group=None):
     """MSE-optimal per-bit ranges (reference `_calibrate_mse`,
     `quantization.py:360-381`): for each bit width b = 2..8 the alpha whose
     range alpha * (min x, max x) minimises mean((x - Q_b(x))^2), first
@@ -190,9 +203,12 @@ def calibrate_mse(x: torch.Tensor, chunk_elements: int = 1 << 25):
 
     The grid is 7 x 100 full fake quantizations of x; it is walked bit by
     bit in chunks of alphas of at most `chunk_elements` quantized elements,
-    so memory stays near x's size times the chunk, never the whole grid."""
+    so memory stays near x's size times the chunk, never the whole grid.
+    With a `group`, x is this rank's equal slice of the batch: the range
+    and the errors are the whole batch's."""
     flat = x.reshape(1, -1).to(torch.float32)
     x_min, x_max = torch.aminmax(flat)
+    x_min, x_max = all_min(x_min, group), all_max(x_max, group)
     alphas = mse_alphas(x.device)
     k = max(1, min(MSE_CANDIDATES, chunk_elements // max(flat.shape[1], 1)))
     best = []
@@ -201,8 +217,12 @@ def calibrate_mse(x: torch.Tensor, chunk_elements: int = 1 << 25):
         for i in range(0, MSE_CANDIDATES, k):
             a = alphas[i:i + k, None]
             xq = quantize_tensor(flat, x_min * a, x_max * a, b, training=False)
-            errors.append((flat - xq).square().mean(dim=1))
-        best.append(alphas[torch.argmin(torch.cat(errors))])
+            sq = (flat - xq).square()
+            errors.append(sq.mean(dim=1) if group is None else sq.sum(dim=1))
+        errors = torch.cat(errors)
+        if group is not None:
+            errors = all_sum(errors, group) / (flat.shape[1] * group_size(group))
+        best.append(alphas[torch.argmin(errors)])
     best = torch.stack(best)[:, None]
     return x_min * best, x_max * best
 
@@ -249,6 +269,8 @@ class SpatialAdaptiveQuantization(nn.Module):
     running_min / running_max (C,), num_batches () int32, frozen () bool,
     and in 'entropy' mode histogram (2048,) float32."""
 
+    data_group = None  # the process group of the data-parallel batch
+
     def __init__(self, num_channels: int, calibration_mode: str = "minmax",
                  smooth_transitions: bool = True, backend: str = "auto"):
         super().__init__()
@@ -268,7 +290,8 @@ class SpatialAdaptiveQuantization(nn.Module):
 
     def _batch_minmax(self, x: torch.Tensor):
         lo, hi = torch.aminmax(x.reshape(-1, x.shape[-1]), dim=0)
-        return lo.to(torch.float32), hi.to(torch.float32)
+        lo, hi = lo.to(torch.float32), hi.to(torch.float32)
+        return all_min(lo, self.data_group), all_max(hi, self.data_group)
 
     @torch.no_grad()
     def ema_update(self, x: torch.Tensor) -> None:
@@ -285,7 +308,7 @@ class SpatialAdaptiveQuantization(nn.Module):
         self.running_max.copy_(torch.where(keep, self.running_max, new_max))
         self.num_batches.copy_(torch.where(keep, self.num_batches, self.num_batches + 1))
         if self.calibration_mode == "entropy":
-            h = batch_histogram(x.to(torch.float32))
+            h = batch_histogram(x.to(torch.float32), group=self.data_group)
             # the reference tests the count after its increment
             new_hist = torch.where(self.num_batches <= 1, h,
                                    m * self.histogram + (1 - m) * h)
@@ -307,17 +330,17 @@ class SpatialAdaptiveQuantization(nn.Module):
             return x_min.contiguous(), x_max.contiguous()
         xf = x.to(torch.float32)
         if mode == "percentile":
-            flat = xf.reshape(-1, C)
+            flat = all_gather_cat(xf.reshape(-1, C), self.data_group)
             return channel_quantile(flat, 0.0001), channel_quantile(flat, 0.9999)
         if mode == "mse":
-            return calibrate_mse(xf)
+            return calibrate_mse(xf, group=self.data_group)
         # entropy: 99.9% central mass of the histogram, mapped symmetrically
         cum = torch.cumsum(self.histogram, dim=0)
         threshold = 0.999
         marks = torch.tensor([(1 - threshold) / 2, threshold + (1 - threshold) / 2],
                              dtype=torch.float32, device=x.device)
         idx = torch.searchsorted(cum, marks).to(torch.float32)  # side='left'
-        abs_max = xf.abs().amax()
+        abs_max = all_max(xf.abs().amax(), self.data_group)
         x_min = -abs_max * idx[0] / HISTOGRAM_BINS
         x_max = abs_max * idx[1] / HISTOGRAM_BINS
         return x_min.expand(C).contiguous(), x_max.expand(C).contiguous()

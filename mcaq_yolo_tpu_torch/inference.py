@@ -11,6 +11,15 @@ P3-scale complexity / bit maps.
         [--output out.json] [--visualize --output-dir DIR] [--device cpu]
 
 runs on CUDA unless `--device` says otherwise.
+
+`Predictor(data_parallel=True)` in a torch.distributed process group of N
+> 1 ranks (one process per card, torchrun) serves `predict_batch` over
+all of them, as the reference serves over its device mesh: every rank
+calls it on the same inputs, each chunk is rounded up to a multiple of N,
+each rank runs the deployed program on its rows with the quantizer's
+batch range reduced over the group, and the results are gathered, so
+every rank returns the whole list in order.  `predict` stays on one rank's
+program.
 """
 
 from __future__ import annotations
@@ -29,6 +38,16 @@ from .data.dataset import IMG_EXTS, letterbox, read_image, unletterbox_boxes
 from .device import DeviceLike, resolve_device
 from .models.mcaq_yolo import MCAQYOLO
 from .models.yolo import decode_and_nms
+from .parallel.mesh import (
+    all_gather_cat,
+    data_group,
+    make_mesh,
+    mesh_size,
+    reduced_over,
+    replicate,
+    shard_batch,
+    world_size,
+)
 from .utils.checkpoint import load_meta
 from .utils.model_utils import restore_into
 
@@ -60,16 +79,18 @@ def deployed_program(model: MCAQYOLO, images: torch.Tensor, num_classes: int,
 
 
 class Predictor:
-    """Single-image / batch MCAQ-YOLO inference on one device.
+    """Single-image / batch MCAQ-YOLO inference.
 
     `dtype` is the network compute dtype (torch.bfloat16 for the deployed
     program); `device` defaults to CUDA and raises without one.  Like the
     reference's, it takes no calibration mode: it builds a 'minmax' model
     and serves the checkpoint's frozen EMA statistics whatever mode
     calibrated them (an entropy-mode histogram in the checkpoint is left
-    out).  `data_parallel` (the reference's batch split over devices) and
-    `morph_tile_engine` (default: the meta's `morphology.tile_engine`) are
-    accepted; the port serves on the one device."""
+    out).  `data_parallel`: `predict_batch` over the ranks of the process
+    group (module docstring; `self.mesh` is None at one rank, as in the
+    reference); `morph_tile_engine` (default: the meta's
+    `morphology.tile_engine`) is accepted: the port computes the metrics
+    one way."""
 
     def __init__(self, model_path: str, num_classes: int = 80, variant: str = "yolov8n",
                  img_size: Optional[int] = None, conf_threshold: float = 0.25,
@@ -83,9 +104,12 @@ class Predictor:
                  morph_tile_engine: Optional[str] = None,
                  dtype: torch.dtype = torch.float32, device: DeviceLike = None):
         self.device = resolve_device(device)
-        if data_parallel and self.device.type == "cuda" and torch.cuda.device_count() > 1:
-            print(f"[MCAQ] data_parallel: serving on {self.device} only "
-                  f"({torch.cuda.device_count()} devices visible)")
+        world = world_size()
+        if (data_parallel and world == 1 and self.device.type == "cuda"
+                and torch.cuda.device_count() > 1):
+            n = torch.cuda.device_count()
+            print(f"[MCAQ] data_parallel: serving on {self.device} only ({n} devices "
+                  f"visible); run under `torchrun --nproc-per-node {n}` to serve on all")
         # every model-defining training key comes from the meta; explicit
         # kwargs win (None = from meta, then the default)
         meta = load_meta(model_path)
@@ -137,6 +161,13 @@ class Predictor:
             morph_downsample=morph_downsample, morph_tile_engine=morph_tile_engine,
             dtype=dtype, device=self.device)
         restore_into(self.model, model_path)
+        # opt-in multi-card serving: the batch split along the 'data' mesh,
+        # the weights replicated (the training DP recipe, parallel/mesh.py)
+        self.mesh = None
+        if data_parallel and world > 1:
+            self.mesh = make_mesh(device_type=self.device.type)
+            replicate(self.mesh, self.model)
+        self.group = data_group(self.mesh)
         if warmup:
             self._warmup()
 
@@ -145,6 +176,10 @@ class Predictor:
                         device=self.device)
         for _ in range(iters):
             self._predict_device(x)
+        if self.mesh is not None:
+            # the data-parallel program at its least batch, one image per rank
+            self._run(np.zeros((mesh_size(self.mesh),) + tuple(x.shape[1:]), np.uint8),
+                      data_parallel=True)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -175,9 +210,19 @@ class Predictor:
         lb, scale, pad = letterbox(image, self.img_size)
         return np.ascontiguousarray(lb, np.uint8), scale, pad
 
-    def _run(self, stack: np.ndarray):
+    def _run(self, stack: np.ndarray, data_parallel: bool = False):
+        """The deployed program on a uint8 chunk -> host arrays, ms.  With
+        `data_parallel` this rank runs its rows and the per-image outputs
+        are gathered from every rank (avg_bits is already global)."""
         t0 = time.perf_counter()
-        out = self._predict_device(torch.from_numpy(stack).to(self.device))
+        x = torch.from_numpy(stack)
+        if data_parallel:
+            x = shard_batch(self.mesh, {"image": x})["image"]
+            with reduced_over(self.group, self.model):
+                out = self._predict_device(x.to(self.device))
+            out = [all_gather_cat(o, self.group) if o.dim() else o for o in out]
+        else:
+            out = self._predict_device(x.to(self.device))
         out = [o.cpu().numpy() for o in out]
         return out, (time.perf_counter() - t0) * 1000.0
 
@@ -221,11 +266,17 @@ class Predictor:
         """Batched forwards over HxWx3 uint8 RGB images or image paths (read
         per chunk, so a large directory holds one chunk in memory); the
         ragged tail is padded by repeating the last image so every chunk has
-        one shape."""
+        one shape.  Under `data_parallel` every rank calls it on the same
+        images; the chunk is rounded up to a multiple of the ranks."""
         n = len(images)
         if n == 0:
             return []
         batch_size = min(batch_size, n)
+        if self.mesh is not None:
+            # a mesh multiple, so the leading axis splits evenly (the tail
+            # pad below then covers ragged chunks too)
+            k = mesh_size(self.mesh)
+            batch_size = -(-batch_size // k) * k
         results: List[Dict] = []
         for i in range(0, n, batch_size):
             raw = [im if isinstance(im, np.ndarray) else read_image(str(im))
@@ -235,7 +286,7 @@ class Predictor:
             stack = np.stack([c[0] for c in chunk])
             if k < batch_size:
                 stack = np.concatenate([stack, np.repeat(stack[-1:], batch_size - k, axis=0)])
-            out, dt_ms = self._run(stack)
+            out, dt_ms = self._run(stack, data_parallel=self.mesh is not None)
             self._check_pool_headroom(out[-1][:k])
             for j in range(k):
                 _, scale, pad = chunk[j]

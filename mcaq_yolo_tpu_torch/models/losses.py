@@ -11,6 +11,16 @@ The assigner is the reference's fixed-shape formulation over a (B, M, A)
 grid: top-k per ground truth by k rounds of first-max argmax and knock-out,
 conflicts resolved by the larger overlap.  It builds targets and runs
 without gradient on detached scores and boxes, as the reference does.
+
+Under data parallelism (`MCAQYOLOLoss.data_group`, set by
+`parallel.mesh.reduced_over`) each rank holds an equal slice of the
+global batch, and each rank's loss is built so that its mean over the
+ranks is the one-device loss on the global batch; the parameter
+gradients are averaged over the ranks, so they are that loss's too.  The
+detection terms divide by the global target-score sum (a mean of
+per-rank `sum / tss_local` is not `sum / tss_global`) and are scaled by
+the number of ranks; the bit-budget term takes the global `avg_bits`
+(the model's).
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import all_sum, group_size
 from .yolo import REG_MAX, dfl_decode, make_anchors
 
 # ---------------------------------------------------------------------------
@@ -170,7 +181,12 @@ class DetectionLoss:
         self.nc = num_classes
         self.box_gain, self.cls_gain, self.dfl_gain = box_gain, cls_gain, dfl_gain
 
-    def __call__(self, raw_maps: Sequence[torch.Tensor], gt_boxes, gt_classes, gt_mask):
+    def __call__(self, raw_maps: Sequence[torch.Tensor], gt_boxes, gt_classes, gt_mask,
+                 group=None):
+        """`group`: the maps and targets are this rank's slice of the global
+        batch; the terms are normalized by the global target-score sum and
+        scaled by the group's size (their mean over the ranks is the global
+        loss)."""
         B = raw_maps[0].shape[0]
         points, strides = make_anchors([m.shape[1:3] for m in raw_maps],
                                        device=raw_maps[0].device)   # feature units
@@ -187,7 +203,9 @@ class DetectionLoss:
             pred_scores.detach(), (pb * strides[None]).detach(), points * strides,
             gt_boxes, gt_classes, gt_mask)
 
-        tss = torch.clamp(target_scores.sum(), min=1.0)
+        tss = torch.clamp(all_sum(target_scores.sum(), group), min=1.0)
+        if group is not None:
+            tss = tss / group_size(group)
         loss_cls = bce_with_logits(cls_logits, target_scores).sum() / tss
 
         tb_s = tb / strides[None]
@@ -265,7 +283,15 @@ DEFAULT_LOSS_WEIGHTS = {"detection": 1.0, "bit_budget": 0.01, "smoothness": 0.1,
 
 class MCAQYOLOLoss:
     """L = Ldet + l1 Lbit + l2 Lsmooth + l3 LKD + l4 Lreg (paper Eq.20); the
-    weights come per epoch from the CurriculumScheduler."""
+    weights come per epoch from the CurriculumScheduler.
+
+    With a `data_group` the detection terms are the group-scaled ones of
+    `DetectionLoss`, and Lbit reads the model's global avg_bits.  Lsmooth
+    and LKD stay this rank's means: they are plain means over elements of
+    equal slices, so their mean over the ranks is the global mean.  Lreg
+    reads only the parameters, the same on every rank."""
+
+    data_group = None  # the process group of the data-parallel batch
 
     def __init__(self, num_classes: int = 80, target_bits: float = 4.0):
         self.detection_loss = DetectionLoss(num_classes)
@@ -281,7 +307,8 @@ class MCAQYOLOLoss:
         device = raw_maps[0].device
 
         loss_vec, items = self.detection_loss(raw_maps, batch["gt_boxes"],
-                                              batch["gt_classes"], batch["gt_mask"])
+                                              batch["gt_classes"], batch["gt_mask"],
+                                              group=self.data_group)
         loss_det = loss_vec.sum()
         loss_bit = bit_budget_loss(aux_info["avg_bits"], target_bits)
         loss_smooth = smoothness_loss(aux_info["bit_map"])

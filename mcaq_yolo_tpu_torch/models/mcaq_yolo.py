@@ -9,6 +9,13 @@ channel count, own soft mask).
 statistics, continuous bit maps, the quantizers' fractional compose with
 their EMA step, with autograd.  `training=False` is the eval forward
 (integer bits, the CUDA kernel on CUDA), without gradient.
+
+Under data parallelism (`parallel.mesh.reduced_over(group, model)`) the
+forward takes this rank's slice of the global batch and its batch-wide
+reductions run over the group: the BatchNorm training statistics, the
+quantizers' ranges, and `avg_bits`, the global mean (differentiable: it
+feeds the squared bit-budget loss, and a mean of squares is not the
+square of the mean).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from ..core.bit_allocation import (
 from ..core.morphology import MorphologicalComplexityAnalyzer
 from ..core.quantization import SpatialAdaptiveQuantization
 from ..device import DeviceLike, resolve_device
+from ..parallel.mesh import all_mean
 from .yolo import (
     DetectHead,
     YOLOv8Backbone,
@@ -60,6 +68,8 @@ class MCAQYOLO(nn.Module):
     a seeded random init, in eval mode.  `morph_tile_engine` is the
     reference's choice of tile layout for its TPU morphology ('lanes' or
     'rows'); both compute the same metrics, which the port computes one way."""
+
+    data_group = None  # the process group of the data-parallel batch
 
     def __init__(self, variant: str = "yolov8n", num_classes: int = 80,
                  min_bits: int = 2, max_bits: int = 8, target_bits: float = 4.0,
@@ -174,7 +184,8 @@ class MCAQYOLO(nn.Module):
                 complexity_maps.append(c)
                 bit_maps.append(b)
             raw_maps = self.head(self.neck(*feats_q, training), training)
-        avg_bits = torch.stack([b.to(torch.float32).mean() for b in bit_maps]).mean()
+        avg_bits = all_mean(torch.stack([b.to(torch.float32).mean() for b in bit_maps]).mean(),
+                            self.data_group)
         aux: Dict = {
             "complexity_map": complexity_maps,
             "bit_map": bit_maps,

@@ -46,6 +46,7 @@ import torch.nn as nn
 
 from ..core.bit_allocation import MonotoneDense
 from ..core.quantization import LearnedRoundingQuantization
+from ..utils.checkpoint import copy_full_, full_tensor
 
 COLLECTIONS = ("params", "batch_stats", "quant_stats", "buffers")
 _NORMS = (nn.BatchNorm1d, nn.BatchNorm2d, nn.LayerNorm)
@@ -110,45 +111,47 @@ def load_jax_variables(model: nn.Module, variables: Dict) -> nn.Module:
                 if tuple(arr.shape) != tuple(tensor.shape):
                     raise ValueError(
                         f"shape mismatch at {name}: {arr.shape} vs {tuple(tensor.shape)}")
-                tensor.copy_(torch.from_numpy(np.array(arr)))  # a C-order copy, 0-d kept
+                copy_full_(tensor, torch.from_numpy(np.array(arr)))  # a C-order copy, 0-d kept
     return model
 
 
-# torch -> flax and flax -> torch layouts of Conv and Dense kernels
-_CONV = (lambda a: a.transpose(2, 3, 1, 0), lambda a: a.transpose(3, 2, 0, 1))
-_DENSE = (np.transpose, np.transpose)
-_SAME = (None, None)
+# the torch dims of a Conv kernel (OIHW) and a Dense kernel ((out, in)) in
+# the order of their flax layouts (HWIO, (in, out))
+_CONV_AXES = (2, 3, 1, 0)
+_DENSE_AXES = (1, 0)
 
 
-def _param_leaves(model: nn.Module):
-    """(flax params path, parameter, (to flax, from flax) layouts) for
-    every parameter of `model`."""
+def param_leaves(model: nn.Module):
+    """(flax params path, parameter, axes) for every parameter of `model`:
+    `axes` are the parameter's dims in the order of its flax layout (None:
+    the same layout), so `np.transpose(a, axes)` takes a torch array to
+    flax and flax dim i is torch dim axes[i]."""
     for qual, m in model.named_modules():
         path = tuple(qual.split(".")) if qual else ()
         if isinstance(m, nn.Conv2d):
-            yield path + ("kernel",), m.weight, _CONV
+            yield path + ("kernel",), m.weight, _CONV_AXES
             if m.bias is not None:
-                yield path + ("bias",), m.bias, _SAME
+                yield path + ("bias",), m.bias, None
         elif isinstance(m, nn.Linear):
-            yield path + ("kernel",), m.weight, _DENSE
-            yield path + ("bias",), m.bias, _SAME
+            yield path + ("kernel",), m.weight, _DENSE_AXES
+            yield path + ("bias",), m.bias, None
         elif isinstance(m, _NORMS):
-            yield path + ("scale",), m.weight, _SAME
-            yield path + ("bias",), m.bias, _SAME
+            yield path + ("scale",), m.weight, None
+            yield path + ("bias",), m.bias, None
         elif isinstance(m, MonotoneDense):
-            yield path + ("theta",), m.theta, _SAME
-            yield path + ("bias",), m.bias, _SAME
+            yield path + ("theta",), m.theta, None
+            yield path + ("bias",), m.bias, None
         elif isinstance(m, LearnedRoundingQuantization):
-            yield path + ("alpha",), m.alpha, _SAME
+            yield path + ("alpha",), m.alpha, None
 
 
-def _put(tree: Dict, path, tensor: torch.Tensor, conv=None) -> None:
-    arr = tensor.detach().to("cpu")
+def _put(tree: Dict, path, tensor: torch.Tensor, axes=None) -> None:
+    arr = full_tensor(tensor).detach().to("cpu")
     if arr.is_floating_point():
         arr = arr.to(torch.float32)
     arr = arr.numpy()
-    if conv is not None:
-        arr = conv(arr)
+    if axes is not None:
+        arr = np.transpose(arr, axes)
     node = tree
     for k in path[:-1]:
         node = node.setdefault(k, {})
@@ -158,25 +161,26 @@ def _put(tree: Dict, path, tensor: torch.Tensor, conv=None) -> None:
 def params_tree(model: nn.Module,
                 value_of: Callable[[nn.Parameter], torch.Tensor]) -> Dict:
     """A flax 'params'-layout tree holding value_of(p) (a tensor of p's
-    shape) for every parameter p, with the parameters' layout transforms."""
+    shape; a sharded DTensor is gathered whole) for every parameter p, with
+    the parameters' layout transforms."""
     tree: Dict = {}
-    for path, p, (to_flax, _) in _param_leaves(model):
-        _put(tree, path, value_of(p), to_flax)
+    for path, p, axes in param_leaves(model):
+        _put(tree, path, value_of(p), axes)
     return tree
 
 
 def params_from_tree(model: nn.Module, tree: Dict) -> Dict[nn.Parameter, torch.Tensor]:
     """The inverse of `params_tree`: parameter -> float32 CPU tensor in the
-    parameter's layout.  Raises ValueError on a missing, extra or misshapen
-    leaf."""
+    parameter's layout (whole, also for a sharded parameter).  Raises
+    ValueError on a missing, extra or misshapen leaf."""
     leaves = dict(_leaves(tree))
     out = {}
-    for path, p, (_, from_flax) in _param_leaves(model):
+    for path, p, axes in param_leaves(model):
         if path not in leaves:
             raise ValueError(f"no leaf for {'/'.join(path)}")
         arr = np.asarray(leaves.pop(path), np.float32)
-        if from_flax is not None:
-            arr = from_flax(arr)
+        if axes is not None:
+            arr = np.transpose(arr, np.argsort(axes))
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"shape mismatch at {'/'.join(path)}: {arr.shape} vs "
                              f"{tuple(p.shape)}")

@@ -31,8 +31,21 @@ optimizer, the eval and validation-loss steps, the teacher export, the
     bfloat16 under autocast on CUDA, with float32 weights; the MCAQ math,
     the teacher and the losses stay float32.
 
-`training.parallel` takes the reference's 'dp' and 'fsdp' (anything else
-raises); the port trains on one device in both.
+Multi-device (`training.parallel`, the reference's 'dp' or 'fsdp'; anything
+else raises): one process per card under
+
+    torchrun --nproc-per-node N -m mcaq_yolo_tpu_torch.train --config c.yaml
+
+The ranks of the process group form the 'data' mesh over gcd(batch_size,
+N) of them (`parallel/mesh.py`); every rank loads and augments the same
+global batch (the same loader and seed) and trains on its rows of it.
+'dp' replicates the model and averages the gradients over the mesh; 'fsdp'
+shards every large parameter, its AdamW moments and the teacher
+(`parallel/fsdp.py`).  Every batch-wide reduction runs over the mesh, so
+the N-rank step is the one-device step on the global batch.  The first
+rank writes the checkpoints (whole tensors, the one-rank format),
+`history.json` and the log.  A process group of one rank, or none, runs
+exactly the one-device program, with no collective.
 """
 
 from __future__ import annotations
@@ -57,6 +70,24 @@ from .core.curriculum import CurriculumScheduler
 from .core.morphology import compute_phi_tiles, score_image_eq8
 from .data.dataset import DataLoader, YOLODataset, compute_dataset_complexity, load_dataset_yaml
 from .device import DeviceLike, resolve_device
+from .parallel import fsdp
+from .parallel.mesh import (
+    all_gather_cat,
+    all_mean,
+    all_sum,
+    barrier,
+    broadcast_object,
+    data_group,
+    group_size,
+    in_mesh,
+    is_first,
+    make_mesh,
+    mesh_size,
+    reduced_over,
+    replicate,
+    shard_batch,
+    world_size,
+)
 from .models.losses import MCAQYOLOLoss, kd_feature_loss
 from .models.mcaq_yolo import MCAQYOLO
 from .models.weights_io import (
@@ -67,7 +98,7 @@ from .models.weights_io import (
     to_jax_variables,
 )
 from .models.yolo import YOLOv8, decode_and_nms
-from .utils.checkpoint import load_checkpoint, save_checkpoint, write_msgpack
+from .utils.checkpoint import load_checkpoint, save_checkpoint, shard_like, write_msgpack
 from .utils.evaluation import (
     compute_map,
     compute_map50_95,
@@ -111,33 +142,57 @@ def weight_decay_mask(model: nn.Module, decay_bit_mapper: bool = False) -> Dict[
             for name, _ in model.named_parameters()}
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
 @torch.no_grad()
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float, group=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: g * max_norm / ||g|| when the
     global norm ||g|| >= max_norm, else g unchanged.  Returns ||g||; no
-    host synchronisation."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    host synchronisation.  Sharded gradients (DTensors, 'fsdp') count
+    their slices over `group`; every other gradient is the same on each
+    rank and counts once."""
+    plain = [g for g in grads if not _is_dtensor(g)]
+    local = [g.to_local() for g in grads if _is_dtensor(g)]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(plain))) if plain else \
+        local[0].new_zeros(())
+    if local:
+        shard_sq = torch.stack(torch._foreach_norm(local)).square().sum()
+        norm = torch.sqrt(norm.square() + all_sum(shard_sq, group))
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(grads, factor)
+    torch._foreach_mul_(plain + local, factor)
     return norm
 
 
 class Optimizer:
     """Global-norm clip to MAX_GRAD_NORM, then AdamW (or Adam) on a
     per-step schedule, over every parameter of `model`; `step()` applies one
-    update and leaves the clipped gradients in `.grad`."""
+    update and leaves the clipped gradients in `.grad`.
+
+    `group` (data parallelism): `step()` first averages over the group the
+    gradients of the parameters every rank holds whole (all of them under
+    'dp', the replicated ones under 'fsdp'; one collective over a flat
+    buffer); FSDP has already averaged and sharded the others.  Build it
+    after the model is placed: AdamW's state then follows the DTensors."""
 
     def __init__(self, model: nn.Module, schedule: Callable[[int], float],
                  betas=(0.9, 0.999), weight_decay: float = 0.05,
-                 decay_bit_mapper: bool = False, kind: str = "adamw"):
+                 decay_bit_mapper: bool = False, kind: str = "adamw", group=None):
         if kind not in ("adamw", "adam"):
             raise ValueError(f"unknown optimizer type {kind!r}")
         mask = weight_decay_mask(model, decay_bit_mapper)
         named = list(model.named_parameters())
         self.params = [p for _, p in named]
+        self.group = group
         wd = weight_decay if kind == "adamw" else 0.0
-        groups = [{"params": [p for n, p in named if mask[n]], "weight_decay": wd},
-                  {"params": [p for n, p in named if not mask[n]], "weight_decay": 0.0}]
+        # sharded and whole parameters in separate groups: a fused kernel
+        # takes one kind of tensor
+        groups = [{"params": [p for n, p in named if mask[n] == decay and
+                              _is_dtensor(p) == sharded], "weight_decay": wd if decay else 0.0}
+                  for sharded in (False, True) for decay in (True, False)]
         fused = self.params[0].device.type == "cuda"
         self.opt = torch.optim.AdamW([g for g in groups if g["params"]], lr=schedule(0),
                                      betas=tuple(betas), eps=1e-8, fused=fused)
@@ -149,12 +204,16 @@ class Optimizer:
         self.opt.zero_grad(set_to_none=True)
 
     def step(self) -> torch.Tensor:
-        """Clip, AdamW at lr = schedule(step_count), count.  Returns the
-        gradients' global norm before the clip."""
+        """(Average over the group,) clip, AdamW at lr = schedule(step_count),
+        count.  Returns the gradients' global norm before the clip."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        norm = clip_by_global_norm_([p.grad for p in self.params], MAX_GRAD_NORM)
+        if self.group is not None:
+            whole = [p.grad for p in self.params if not _is_dtensor(p.grad)]
+            flat = all_mean(torch._utils._flatten_dense_tensors(whole), self.group)
+            torch._foreach_copy_(whole, torch._utils._unflatten_dense_tensors(flat, whole))
+        norm = clip_by_global_norm_([p.grad for p in self.params], MAX_GRAD_NORM, self.group)
         lr = self.schedule(self.step_count)
         for group in self.opt.param_groups:
             group["lr"] = lr
@@ -205,7 +264,8 @@ class Optimizer:
         order = [p for g in self.opt.param_groups for p in g["params"]]
         sd["state"] = {} if count == 0 else {
             i: {"step": torch.tensor(float(count), dtype=torch.float32),
-                "exp_avg": mu[p], "exp_avg_sq": nu[p]} for i, p in enumerate(order)}
+                "exp_avg": shard_like(mu[p], p), "exp_avg_sq": shard_like(nu[p], p)}
+            for i, p in enumerate(order)}
         self.opt.load_state_dict(sd)  # moves the moments onto the parameters' device
         self.step_count = count
 
@@ -217,8 +277,8 @@ class Optimizer:
 
 def _teacher_outputs(teacher: YOLOv8, images: torch.Tensor):
     """The teacher's raw maps and its backbone features as NHWC, from one
-    backbone pass, without gradient."""
-    with torch.no_grad():
+    backbone pass, without gradient (a sharded teacher gathered for it)."""
+    with torch.no_grad(), fsdp.unsharded(teacher):
         feats = teacher.features(images)
         maps = teacher.head(teacher.neck(*feats))
     return maps, [f.permute(0, 2, 3, 1) for f in feats]
@@ -236,7 +296,12 @@ def make_train_step(model: MCAQYOLO, loss_obj: MCAQYOLOLoss,
     -> metrics (device tensors: the loss terms, avg_bits, bit_hist (7,),
     grad_norm).  `mark(name)`, when given, is called after each phase
     ('forward', 'teacher', 'loss', 'backward', 'optimizer'), e.g. to record
-    CUDA events."""
+    CUDA events.
+
+    Under data parallelism (`reduced_over(group, model, loss_obj)`) the
+    batch is this rank's slice and the returned metrics are the global
+    batch's: each loss term's mean over the ranks, the foreground count and
+    the bit histogram summed."""
     device_type = next(model.parameters()).device.type
 
     def autocast():
@@ -277,9 +342,26 @@ def make_train_step(model: MCAQYOLO, loss_obj: MCAQYOLOLoss,
         metrics["avg_bits"] = aux["avg_bits"].detach()
         metrics["bit_hist"] = sum(bit_histogram(b) for b in aux["bit_map"])
         metrics["grad_norm"] = grad_norm
-        return metrics
+        return _global_metrics(metrics, loss_obj.data_group)
 
     return train_step
+
+
+_SUMMED_METRICS = ("num_fg", "bit_hist")
+
+
+def _global_metrics(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """One collective: the counts summed over the group, every other metric
+    averaged (avg_bits and grad_norm are already global, the same on every
+    rank)."""
+    if group is None:
+        return metrics
+    keys = list(metrics)
+    flat = torch.cat([metrics[k].reshape(-1).to(torch.float64) for k in keys])
+    total = all_sum(flat, group).split([metrics[k].numel() for k in keys])
+    n = float(group_size(group))
+    return {k: (t if k in _SUMMED_METRICS else t / n).reshape(metrics[k].shape)
+            .to(metrics[k].dtype) for k, t in zip(keys, total)}
 
 
 def make_eval_step(model: MCAQYOLO, num_classes: int, conf_threshold: float = 0.001,
@@ -311,7 +393,7 @@ def make_val_loss_step(model: MCAQYOLO, loss_obj: MCAQYOLOLoss):
         total, _ = loss_obj(raw_maps, batch, aux, teacher_maps=None,
                             mapper=model.bit_mapper, loss_weights=loss_weights,
                             target_bits=target_bits)
-        return total
+        return all_mean(total, loss_obj.data_group)
 
     return val_loss_step
 
@@ -371,7 +453,12 @@ class Trainer:
     `output_dir`).  Loaders passed in (e.g. lists of in-memory batches; the
     train loader must have a length) are used as they are, without
     curriculum scoring.  The teacher is required when
-    `distillation.enabled` (read from `model.teacher_path`)."""
+    `distillation.enabled` (read from `model.teacher_path`).
+
+    In a torch.distributed process group of N > 1 ranks (torchrun), every
+    rank builds its Trainer with the same config; the mesh takes gcd(
+    batch_size, N) ranks (a rank outside it says so and does not train)
+    and `training.parallel` places the model on it (module docstring)."""
 
     def __init__(self, config: Dict, train_loader=None, val_loader=None,
                  device: DeviceLike = None):
@@ -384,6 +471,33 @@ class Trainer:
         self.lr = float(config.get("learning_rate", 1e-3))
         self.output_dir = Path(config.get("output_dir", "outputs"))
         self.output_dir.mkdir(parents=True, exist_ok=True)
+
+        # ---- the data mesh over the ranks of the process group ----
+        # 'dp' replicates the model and optimizer state, 'fsdp' shards every
+        # large leaf across the same mesh (parallel/fsdp.py); the mesh must
+        # divide the batch: gcd(batch, ranks), as in the reference
+        self.parallel_mode = str(config.get("training", {}).get("parallel", "dp")).lower()
+        if self.parallel_mode not in ("dp", "fsdp"):
+            raise ValueError(f"training.parallel must be 'dp' or 'fsdp', got "
+                             f"{self.parallel_mode!r}")
+        world = world_size()
+        n_use = max(1, math.gcd(self.batch_size, world))
+        self.mesh = make_mesh(n_use, self.device.type) if world > 1 else None
+        if n_use < world:
+            print(f"[MCAQ] data mesh uses {n_use}/{world} devices "
+                  f"(batch {self.batch_size} must divide the mesh)")
+        self.in_mesh = in_mesh(self.mesh)
+        self.group = data_group(self.mesh) if self.in_mesh else None
+        if not self.in_mesh:
+            print(f"[MCAQ] rank {torch.distributed.get_rank()} is outside the data mesh "
+                  f"of {n_use} ranks: it does not train")
+            return
+        if world == 1 and self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            n = torch.cuda.device_count()
+            print(f"[MCAQ] training.parallel={self.parallel_mode!r}: training on "
+                  f"{self.device} only ({n} devices visible); run `torchrun "
+                  f"--nproc-per-node {n} -m mcaq_yolo_tpu_torch.train --config ...` to "
+                  "train on all of them")
 
         mcfg = config.get("model", {})
         qcfg = config.get("quantization", {})
@@ -410,7 +524,6 @@ class Trainer:
             normalize_complexity=bool(qcfg.get("normalize_complexity", False)),
             morph_downsample=int(morph.get("downsample", 1)),
             morph_tile_engine=self.morph_tile_engine, device=self.device, seed=self.seed)
-        enforce_monotonic_params(self.model.bit_mapper)
         self.loss_obj = MCAQYOLOLoss(self.num_classes, float(qcfg.get("target_bits", 4.0)))
 
         self.kd_enabled = bool(config.get("distillation", {}).get("enabled", True))
@@ -424,6 +537,16 @@ class Trainer:
                     "exist: export one (export_teacher_from_ckpt) or set "
                     "distillation.enabled: false.")
             self.teacher = load_teacher(tpath, self.variant, self.num_classes, self.device)
+
+        # commit the parallel mode's placement; batches are sharded per step
+        if self.parallel_mode == "fsdp":
+            frac = fsdp.shard_fraction(self._train_state_shapes(), self.mesh)
+            self._print(f"[MCAQ] FSDP over {mesh_size(self.mesh)} devices: "
+                        f"{frac:.0%} of train-state elements sharded")
+        self._place(self.model)
+        if self.teacher is not None:
+            self._place(self.teacher)
+        enforce_monotonic_params(self.model.bit_mapper)
 
         # ---- data ----
         self.train_dataset = self.val_dataset = None
@@ -456,7 +579,8 @@ class Trainer:
         )
         self.complexity_scores = None
         if ccfg.get("enabled", True) and self.train_dataset is not None:
-            self.complexity_scores = self._compute_complexity_scores()
+            scores = self._compute_complexity_scores() if is_first(self.group) else None
+            self.complexity_scores = broadcast_object(scores, self.group)
 
         # ---- optimizer: clip + AdamW + warmup-cosine ----
         ocfg = config.get("optimizer", {})
@@ -470,17 +594,7 @@ class Trainer:
             self.model, self.schedule, betas=ocfg.get("betas", [0.9, 0.999]),
             weight_decay=float(ocfg.get("weight_decay", 0.05)),
             decay_bit_mapper=bool(ocfg.get("decay_bit_mapper", False)),
-            kind=str(ocfg.get("type", "adamw")).lower())
-
-        # 'dp' replicates and 'fsdp' shards the state over the reference's
-        # device mesh; the port trains on one device in either mode
-        self.parallel_mode = str(config.get("training", {}).get("parallel", "dp")).lower()
-        if self.parallel_mode not in ("dp", "fsdp"):
-            raise ValueError(f"training.parallel must be 'dp' or 'fsdp', got "
-                             f"{self.parallel_mode!r}")
-        if self.device.type == "cuda" and torch.cuda.device_count() > 1:
-            print(f"[MCAQ] training.parallel={self.parallel_mode!r}: training on "
-                  f"{self.device} only ({torch.cuda.device_count()} devices visible)")
+            kind=str(ocfg.get("type", "adamw")).lower(), group=self.group)
 
         self.map_interval = max(1, int(config.get("training", {}).get("map_interval", 1)))
         self.train_step = make_train_step(self.model, self.loss_obj, self.teacher,
@@ -489,6 +603,27 @@ class Trainer:
         self.val_loss_step = make_val_loss_step(self.model, self.loss_obj)
         self.history: list = []
         self.best_map = -1.0
+
+    def _print(self, msg: str) -> None:
+        """The log: printed by the mesh's first rank."""
+        if is_first(self.group):
+            print(msg)
+
+    def _place(self, module: nn.Module) -> nn.Module:
+        """Commit the parallel mode's placement on the mesh: 'dp' broadcasts
+        the module from the first rank, 'fsdp' shards it."""
+        if self.parallel_mode == "fsdp":
+            return fsdp.fsdp_shard(module, self.mesh)
+        return replicate(self.mesh, module)
+
+    def _train_state_shapes(self) -> Dict:
+        """The JAX trainer's train state, as flax-layout arrays: variables,
+        AdamW's moments and counts, the step (what `shard_fraction`
+        counts)."""
+        variables = to_jax_variables(self.model)
+        params = variables["params"]
+        return dict(variables, opt_state={"mu": params, "nu": params, "count": (),
+                                          "schedule_count": ()}, step=())
 
     def _build_loaders(self, dcfg: Dict) -> None:
         """The train / val datasets and loaders from `data.yaml_path` or
@@ -586,7 +721,7 @@ class Trainer:
         offline ordering follows the learned notion of complexity."""
         analyzer = self.model.complexity_analyzer
         phis, cs = [], []
-        with torch.no_grad():
+        with torch.no_grad(), fsdp.unsharded(self.model):
             for i, batch in enumerate(self.train_loader):
                 x = torch.as_tensor(batch["image"]).to(self.device)
                 phi, _ = compute_phi_tiles(x, grid_size=self.model.grid_size)
@@ -596,14 +731,19 @@ class Trainer:
                 if i + 1 >= max_batches:
                     break
         alpha = morphology_cv2.fit_feature_weights(np.concatenate(phis), np.concatenate(cs))
+        alpha = broadcast_object(alpha, self.group)  # one refit for the whole mesh
         with torch.no_grad():
             analyzer.feature_weights.copy_(torch.as_tensor(alpha, dtype=torch.float32))
         return alpha
 
     def rescore_curriculum(self) -> None:
-        """Score the training images again with the (refit) analyzer."""
-        self.complexity_scores = compute_dataset_complexity(
-            self._scoring_dataset(), self._score_fn(), cache_path=None)
+        """Score the training images again with the (refit) analyzer (on the
+        mesh's first rank, which sends the scores to the others)."""
+        scores = None
+        if is_first(self.group):
+            scores = compute_dataset_complexity(self._scoring_dataset(), self._score_fn(),
+                                                cache_path=None)
+        self.complexity_scores = broadcast_object(scores, self.group)
 
     def _curriculum_indices(self, tau_t: float) -> Optional[np.ndarray]:
         """Algorithm 3 line 9: D_t = {x : C(x) <= tau_t}, or the easiest
@@ -621,8 +761,14 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a global batch, on the device."""
+        batch = shard_batch(self.mesh, {k: v for k, v in batch.items() if k != "paths"})
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                for k, v in batch.items() if k != "paths"}
+                for k, v in batch.items()}
+
+    def _over_mesh(self):
+        """The block's batch-wide reductions run over the mesh."""
+        return reduced_over(self.group, self.model, self.loss_obj)
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """One pass at the epoch's curriculum settings over the tau_t subset
@@ -649,10 +795,11 @@ class Trainer:
         hist = np.zeros(7, np.int64)
         n_batches = 0
         for batch in loader:
-            metrics = self.train_step(
-                self.optimizer, self._to_device(batch), temp, target_bits,
-                weights["bit_budget"], weights["smoothness"], weights["distillation"],
-                weights["regularization"], quantize=quantize, use_kd=self.kd_enabled)
+            with self._over_mesh():
+                metrics = self.train_step(
+                    self.optimizer, self._to_device(batch), temp, target_bits,
+                    weights["bit_budget"], weights["smoothness"], weights["distillation"],
+                    weights["regularization"], quantize=quantize, use_kd=self.kd_enabled)
             hist += metrics.pop("bit_hist").cpu().numpy().astype(np.int64)
             for k, v in metrics.items():
                 agg[k] = agg.get(k, 0.0) + float(v)
@@ -665,18 +812,19 @@ class Trainer:
         return out
 
     def _log_epoch(self, epoch: int, m: Dict, hist: np.ndarray) -> None:
-        print(f"[epoch {epoch:3d}] stage={int(m['stage'])} "
-              f"loss={m.get('loss_total', 0):.4f} det={m.get('loss_det', 0):.4f} "
-              f"bits={m.get('avg_bits', 0):.2f} temp={m['temperature']:.2f} "
-              f"tau={m['tau']:.2f}")
+        self._print(f"[epoch {epoch:3d}] stage={int(m['stage'])} "
+                    f"loss={m.get('loss_total', 0):.4f} det={m.get('loss_det', 0):.4f} "
+                    f"bits={m.get('avg_bits', 0):.2f} temp={m['temperature']:.2f} "
+                    f"tau={m['tau']:.2f}")
         total = max(1, int(hist.sum()))
         bars = " ".join(f"{b}b:{'#' * int(20 * c / total)}({c})"
                         for b, c in zip(range(2, 9), hist) if c > 0)
-        print(f"          bit-dist {bars}")
+        self._print(f"          bit-dist {bars}")
 
     def compute_val_loss(self, epoch: int) -> float:
         """Mean validation loss over the full batches of `val_loader` at the
-        epoch's curriculum settings (a ragged tail is skipped)."""
+        epoch's curriculum settings (a ragged tail is skipped); each batch
+        split over the mesh."""
         stage = self.curriculum.get_stage(epoch)
         temp = self.curriculum.get_effective_temperature(epoch)
         weights = self.curriculum.get_loss_weights(epoch)
@@ -686,10 +834,12 @@ class Trainer:
             if batch["image"].shape[0] != self.batch_size:
                 n_skipped += 1
                 continue
-            total += float(self.val_loss_step(
-                self._to_device(batch), temp, target_bits, weights["bit_budget"],
-                weights["smoothness"], weights["regularization"], quantize=stage >= 2))
+            with self._over_mesh():
+                total += float(self.val_loss_step(
+                    self._to_device(batch), temp, target_bits, weights["bit_budget"],
+                    weights["smoothness"], weights["regularization"], quantize=stage >= 2))
             n += 1
+        fsdp.reshard(self.model)
         if n_skipped and n == 0:
             warnings.warn(f"compute_val_loss: all {n_skipped} val batches were ragged "
                           f"(< batch_size={self.batch_size}) and skipped; returning 0.0",
@@ -702,22 +852,40 @@ class Trainer:
     def evaluate(self, epoch: int) -> Dict[str, float]:
         """Validation mAP@0.5 and mAP@[.5:.95] at the epoch's temperature and
         quantize flag (eval-mode forward + decode + NMS on the device, the
-        matching on the host), and the mean avg_bits."""
+        matching on the host), and the mean avg_bits.
+
+        Distributed as the reference's: a batch the mesh divides is split
+        over it and its detections gathered; a ragged one (the val loader
+        keeps its tail) runs whole on every rank, without collectives.  The
+        first rank computes the mAP and sends the result to the others."""
         stage = self.curriculum.get_stage(epoch)
         temp = self.curriculum.get_effective_temperature(epoch)
         quantize = stage >= 2
+        first = is_first(self.group)
         predictions, targets, bits = [], [], []
         for batch in self.val_loader or ():
-            images = torch.as_tensor(batch["image"]).to(self.device)
-            b, s, c, v, avg_bits = self.eval_step(images, temp, quantize=quantize)
-            predictions.extend(detections_to_numpy(b, s, c, v))
-            targets.extend(extract_targets_per_image(batch))
-            bits.append(float(avg_bits))
-        res = compute_map(predictions, targets, 0.5)
-        res5095 = compute_map50_95(predictions, targets)
-        return {"map50": res["map"], "map50_95": res5095["map50_95"],
-                "avg_bits": float(np.mean(bits)) if bits else 0.0,
-                "quantized": float(quantize)}
+            images = torch.as_tensor(batch["image"])
+            if images.shape[0] % mesh_size(self.mesh) == 0:
+                with self._over_mesh():
+                    images = shard_batch(self.mesh, {"image": images})["image"]
+                    det = self.eval_step(images.to(self.device), temp, quantize=quantize)
+                    det = [all_gather_cat(t, self.group) for t in det[:4]] + [det[4]]
+            else:
+                det = self.eval_step(images.to(self.device), temp, quantize=quantize)
+            if first:
+                b, s, c, v, avg_bits = det
+                predictions.extend(detections_to_numpy(b, s, c, v))
+                targets.extend(extract_targets_per_image(batch))
+                bits.append(float(avg_bits))
+        fsdp.reshard(self.model)
+        result = None
+        if first:
+            res = compute_map(predictions, targets, 0.5)
+            res5095 = compute_map50_95(predictions, targets)
+            result = {"map50": res["map"], "map50_95": res5095["map50_95"],
+                      "avg_bits": float(np.mean(bits)) if bits else 0.0,
+                      "quantized": float(quantize)}
+        return broadcast_object(result, self.group)
 
     # ------------------------------------------------------------------
     # Checkpoints
@@ -728,7 +896,11 @@ class Trainer:
         quant_stats and buffers in the flax layout, `opt_state` in optax's
         and the update count `step`; plus `name.json` meta with the resolved
         model-defining keys, so that both packages' `Predictor` serve it and
-        both `Trainer.load_checkpoint` resume it."""
+        both `Trainer.load_checkpoint` resume it.  Under data parallelism
+        every rank calls it: the tensors are gathered whole (the file does
+        not depend on the placement), the mesh's first rank writes, and the
+        others wait for it."""
+        fsdp.reshard(self.model)
         payload = dict(to_jax_variables(self.model),
                        opt_state=self.optimizer.state_tree(self.model),
                        step=int(self.optimizer.step_count))
@@ -747,13 +919,17 @@ class Trainer:
                 "img_size": self.img_size,
                 "deploy_temperature": float(self.curriculum.bit_scale), "config": cfg}
         path = self.output_dir / name
-        save_checkpoint(path, payload, meta)
+        if is_first(self.group):
+            save_checkpoint(path, payload, meta)
+        barrier(self.group)
         return path
 
     def load_checkpoint(self, path) -> None:
         """Resume: parameters, BatchNorm statistics, quantizer statistics,
         buffers, AdamW's moments and the update count from a checkpoint of
-        either package.  Raises ValueError when a leaf is missing."""
+        either package (every rank of a mesh reads it and keeps its own
+        slices).  Raises ValueError when a leaf is missing."""
+        fsdp.reshard(self.model)
         payload = load_checkpoint(path)
         template = to_jax_variables(self.model)
         for col in COLLECTIONS:
@@ -777,8 +953,12 @@ class Trainer:
         every `training.map_interval` epochs and at the end, `best.ckpt` at
         the best quantized mAP@0.5 from Stage 3 on, `last.ckpt` every epoch,
         `history.json` at the end.  Each history entry also holds the
-        epoch's wall seconds (`epoch_s`, of which `train_s` and `eval_s`)."""
+        epoch's wall seconds (`epoch_s`, of which `train_s` and `eval_s`).
+        Every rank of the mesh runs it; a rank outside the mesh returns at
+        once."""
         t0 = time.time()
+        if not self.in_mesh:
+            return {"best_map50": None, "epochs": 0, "wall_time_s": 0.0}
         rescored = False
         for epoch in range(self.epochs):
             t_epoch = time.perf_counter()
@@ -792,9 +972,10 @@ class Trainer:
                 try:
                     alpha = self.fit_feature_weights(max_batches=8)
                     self.rescore_curriculum()
-                    print(f"[MCAQ] stage-2 Eq.8 alpha refit: {np.round(alpha, 4)}")
+                    self._print(f"[MCAQ] stage-2 Eq.8 alpha refit: {np.round(alpha, 4)}")
                 except Exception as e:  # the reference goes on without the refit
-                    print(f"[MCAQ][WARN] stage-2 rescore skipped: {type(e).__name__}: {e}")
+                    self._print(f"[MCAQ][WARN] stage-2 rescore skipped: "
+                                f"{type(e).__name__}: {e}")
 
             t_train = time.perf_counter()
             train_metrics = self.train_epoch(epoch)
@@ -809,9 +990,9 @@ class Trainer:
                 train_metrics["bit_scale"] = scale
                 train_metrics["lambda1_boost"] = self.curriculum.lambda1_boost
                 if scale != 1.0 or self.curriculum.lambda1_boost > 1.0:
-                    print(f"          budget controller: bits="
-                          f"{train_metrics['avg_bits']:.2f} -> bit_scale {scale:.3f}, "
-                          f"lambda1 boost {self.curriculum.lambda1_boost:.2f}x")
+                    self._print(f"          budget controller: bits="
+                                f"{train_metrics['avg_bits']:.2f} -> bit_scale {scale:.3f}, "
+                                f"lambda1 boost {self.curriculum.lambda1_boost:.2f}x")
 
             eval_metrics = {}
             if (epoch + 1) % self.map_interval == 0 or epoch == self.epochs - 1:
@@ -822,19 +1003,20 @@ class Trainer:
                         and eval_metrics["map50"] > self.best_map):
                     self.best_map = eval_metrics["map50"]
                     self.save_checkpoint("best.ckpt", epoch)
-                print(f"          val mAP@0.5={eval_metrics['map50']:.4f} "
-                      f"mAP@0.5:0.95={eval_metrics['map50_95']:.4f} "
-                      f"bits={eval_metrics['avg_bits']:.2f}")
+                self._print(f"          val mAP@0.5={eval_metrics['map50']:.4f} "
+                            f"mAP@0.5:0.95={eval_metrics['map50_95']:.4f} "
+                            f"bits={eval_metrics['avg_bits']:.2f}")
 
             self.save_checkpoint("last.ckpt", epoch)
             self.history.append({**train_metrics, **eval_metrics, "epoch": epoch,
                                  "epoch_s": time.perf_counter() - t_epoch})
 
         if self.best_map < 0:
-            print("[MCAQ] NOTE: training ended before Stage 3: best.ckpt was never "
-                  "written; last.ckpt holds the final weights.")
-        (self.output_dir / "history.json").write_text(
-            json.dumps(self.history, indent=2, default=float))
+            self._print("[MCAQ] NOTE: training ended before Stage 3: best.ckpt was never "
+                        "written; last.ckpt holds the final weights.")
+        if is_first(self.group):
+            (self.output_dir / "history.json").write_text(
+                json.dumps(self.history, indent=2, default=float))
         return {"best_map50": self.best_map, "epochs": self.epochs,
                 "wall_time_s": time.time() - t0}
 
@@ -845,14 +1027,41 @@ class Trainer:
 
 
 def main(argv=None):
+    """The command line; under `torchrun --nproc-per-node N` each of the N
+    processes joins the process group (NCCL on CUDA, gloo on the CPU) and
+    trains on its card, cuda:{LOCAL_RANK}."""
     parser = argparse.ArgumentParser(description="MCAQ-YOLO training (PyTorch)")
     parser.add_argument("--config", required=True, help="YAML config path")
-    parser.add_argument("--device", default="cuda",
-                        help="torch device (default cuda; 'cpu' runs on the CPU)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default cuda, cuda:LOCAL_RANK under torchrun; "
+                             "'cpu' runs on the CPU)")
     parser.add_argument("--output-dir", default=None)
     parser.add_argument("--seed", type=int, default=None)
     args = parser.parse_args(argv)
     device = resolve_device(args.device)  # no CUDA: fail before reading anything
+    with _process_group(device):
+        return _train_main(args, device)
+
+
+@contextlib.contextmanager
+def _process_group(device: torch.device):
+    """Join the group torchrun describes (WORLD_SIZE > 1) for the block."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        yield
+        return
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            device_id=device if device.type == "cuda" else None)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_main(args, device):
 
     import yaml
 
@@ -862,8 +1071,10 @@ def main(argv=None):
         config["output_dir"] = args.output_dir
     if args.seed is not None:
         config["seed"] = args.seed
-    results = Trainer(config, device=device).train()
-    print(json.dumps(results, indent=2, default=float))
+    trainer = Trainer(config, device=device)
+    results = trainer.train()
+    if trainer.in_mesh:
+        trainer._print(json.dumps(results, indent=2, default=float))
     return results
 
 

@@ -11,6 +11,9 @@ split into {'__msgpack_chunked_array__': True, 'shape': {...}, 'chunks':
 
 `read_msgpack` / `write_msgpack` handle the whole tree; `load_checkpoint`
 and `save_checkpoint` add the Predictor's `.json` meta beside the file.
+`full_tensor`, `shard_like` and `copy_full_` carry a parameter sharded by
+`parallel/fsdp.py` (a DTensor) to and from the whole array a checkpoint
+holds, so the file format does not depend on the placement.
 """
 
 from __future__ import annotations
@@ -258,3 +261,60 @@ def load_meta(path) -> Dict:
     """The `.json` meta beside a checkpoint, or {} when there is none."""
     p = Path(str(path) + ".json")
     return json.loads(p.read_text()) if p.exists() else {}
+
+
+# ---------------------------------------------------------------------------
+# Sharded tensors (training.parallel: fsdp)
+# ---------------------------------------------------------------------------
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def full_tensor(t):
+    """The whole value of `t`: a sharded DTensor is gathered (a collective:
+    every rank of its mesh calls it together); any other tensor is `t`.
+    Gathered through `dist.all_gather` of the evenly sharded slices (the
+    FSDP rule shards only divisible dims): DTensor's own `full_tensor`
+    takes the functional collectives, which crash over gloo on CUDA
+    tensors (torch 2.11)."""
+    if not _is_dtensor(t):
+        return t
+    from ..parallel.mesh import all_gather_cat
+
+    (placement,) = t.placements
+    local = t.to_local()
+    if not placement.is_shard():
+        return local
+    mesh, d = t.device_mesh, placement.dim
+    if t.shape[d] % mesh.size():
+        raise ValueError(f"dim {d} of {tuple(t.shape)} is not sharded evenly")
+    return all_gather_cat(local.movedim(d, 0), mesh.get_group()).movedim(0, d)
+
+
+def shard_like(full, like):
+    """`full` (the whole array, any device) placed as `like` is: this
+    rank's slice as a DTensor of like's mesh and placement when `like` is
+    one, else `full` on like's device and dtype.  No communication."""
+    full = full.to(device=like.device, dtype=like.dtype)
+    if not _is_dtensor(like):
+        return full
+    from torch.distributed.tensor import DTensor
+
+    (placement,) = like.placements
+    mesh = like.device_mesh
+    if placement.is_shard():
+        full = full.chunk(mesh.size(), dim=placement.dim)[mesh.get_local_rank()]
+    return DTensor.from_local(full.contiguous(), mesh, like.placements, run_check=False)
+
+
+def copy_full_(dst, src) -> None:
+    """dst <- src in place, `src` being dst's whole value (dst's shape):
+    into a sharded DTensor goes its own slice."""
+    if _is_dtensor(dst):
+        dst.to_local().copy_(shard_like(src, dst).to_local())
+    else:
+        dst.copy_(src)

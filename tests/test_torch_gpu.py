@@ -26,7 +26,10 @@ native letterbox builds and agrees with its float variant (and cv2's
 resize, where installed); `evaluate` and the validation loss launch the
 kernel three times per quantized forward and never in Stage 1.  The
 evidence scripts' forward with bit maps supplied from outside (own,
-permuted, constant) is bitwise the plain path's, in 3 launches.  Every
+permuted, constant) is bitwise the plain path's, in 3 launches.  Two ranks
+sharing the card over gloo (`tests/torch_parallel_worker.py`): the
+quantizer's range reduced over them is the whole batch's and the kernel is
+bitwise its plain version on it; sync-BN equals one rank's.  Every
 morphology option agrees with its CPU run, and the profiling layer's
 `component_breakdown` times the card with `with_mcaq` bitwise equal to
 the forward's features; its kernel counter is exact."""
@@ -462,3 +465,76 @@ def test_cuda_kernels_counts_exactly(cuda):
                         (lambda g: tm.phi_metrics_tiled(g, 8), gray)):
             n = profiling.cuda_kernels(fn, arg)
             assert n > 0 and profiling.cuda_kernels(fn, arg) == n
+
+
+# ---------------------------------------------------------------------------
+# Two ranks sharing the card (tests/torch_parallel_worker.py, over gloo)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def two_ranks_on_the_card(tmp_path_factory):
+    """The worker's GPU cases at 2 ranks on cuda:0, and at 1 rank here."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the GPU")
+    import os
+    import pickle
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    work = tmp_path_factory.mktemp("ranks_gpu")
+    worker = Path(__file__).with_name("torch_parallel_worker.py")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(Path(__file__).resolve().parents[1]))
+    procs = [subprocess.Popen([sys.executable, str(worker), str(work), str(r), "2", "gpu"],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
+    ranks = []
+    for r in range(2):
+        with open(work / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_parallel_worker as w
+
+    return ranks, w.run_gpu(None)
+
+
+@pytest.mark.gpu
+def test_group_reduced_range_through_the_kernel(two_ranks_on_the_card):
+    """The range the kernel quantizes with is the global batch's (equal to
+    one rank's on the whole batch), the kernel is bitwise its plain version
+    on it, one launch per call, and the ranks' rows are the one-rank
+    output's."""
+    ranks, one = two_ranks_on_the_card
+    for r in ranks:
+        got = r["kernel_range"]
+        np.testing.assert_array_equal(got["lo"], one["kernel_range"]["lo"])
+        np.testing.assert_array_equal(got["hi"], one["kernel_range"]["hi"])
+        np.testing.assert_array_equal(got["kernel"], got["plain"])
+        assert got["launches"] == 1
+    np.testing.assert_array_equal(np.concatenate([r["kernel_range"]["kernel"] for r in ranks]),
+                                  one["kernel_range"]["kernel"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["bn2d", "bn1d"])
+def test_sync_batchnorm_on_the_card(two_ranks_on_the_card, name):
+    """Sync-BN at 2 ranks against 1 rank on the card (rtol 1e-5, the JAX
+    package's DP bound): outputs, gradients, running statistics."""
+    ranks, one = two_ranks_on_the_card
+    ref = one["batchnorm"][name]
+    two = [r["batchnorm"][name] for r in ranks]
+    for k in ("y", "x_grad"):
+        np.testing.assert_allclose(np.concatenate([t[k] for t in two]), ref[k], rtol=1e-5,
+                                   atol=1e-5 * np.abs(ref[k]).max())
+    for t in two:
+        for k in ("w_grad", "b_grad", "mean", "var"):
+            np.testing.assert_allclose(t[k], ref[k], rtol=1e-5, atol=1e-5 * np.abs(ref[k]).max())

@@ -87,6 +87,7 @@ _EXPORTS = textwrap.dedent("""
     from mcaq_yolo_tpu_torch.data import YOLODataset, make_synthetic_dataset_v3
     from mcaq_yolo_tpu_torch.core import LinearBitMapper, SpatialAdaptiveQuantization
     from mcaq_yolo_tpu_torch.models import VARIANTS, MCAQYOLOLoss
+    from mcaq_yolo_tpu_torch.parallel import make_mesh, shard_batch, fsdp_shard, shard_fraction
     import torch
     from mcaq_yolo_tpu_torch.ops import build
     assert not build._libs  # no build started
@@ -113,11 +114,13 @@ def test_port_imports_without_jax_and_needs_an_explicit_cpu():
 
 
 def test_port_sources_name_no_jax_import():
-    """No import statement of the port or chip_smoke.py names jax, flax or
-    the JAX package (a static check beside the runtime one above)."""
+    """No import statement of the port, chip_smoke.py or the spawned ranks'
+    helper (tests/torch_parallel_worker.py) names jax, flax or the JAX
+    package (a static check beside the runtime one above)."""
     import re
 
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|mcaq_yolo_tpu)\b", re.M)
-    files = list((REPO / "mcaq_yolo_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = list((REPO / "mcaq_yolo_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "torch_parallel_worker.py"]
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders
