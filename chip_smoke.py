@@ -17,6 +17,17 @@ Phases (any failure exits non-zero and prints no result):
      x overflows, bit maps on the rint ties 1.5 .. 8.5) and per-bit range
      rows (7, C) at P3 / P4 / P5 and (7, 1) at P4 (mse calibration's
      ranges) — bitwise equality, one launch counted per call;
+ 2b. the phi kernel (csrc/morph_tiles.cu, the 'lanes' tile engine) against
+     its plain version on 28 gray maps — every tile 1-128 (random, and with
+     constant, zero and exactly tied tiles), a random YOLOv8n's P3 / P4 / P5
+     features at 640 px (downsample 1 and 2) and its P5 at 64 and 32 px,
+     letterboxed images at 128, 256, 640 and 1280 px (Eq.(8) scoring's
+     tiles) — in all 8 option combinations: bitwise against the plain
+     version on the card; against the CPU's plain version within 1e-5 on
+     all but 0.1% of the tiles, each such tile traced to its edge map or
+     mask; one launch counted per call.  Every later path zeroes both
+     kernels' launch counts just before it runs and reads them just after
+     (one phi launch per scale of every forward that runs the analyzer);
   3. the deployed program: a seeded random MCAQ-YOLOv8n (nc=80, MLP bit
      mapper, softplus) written as a flax msgpack checkpoint + meta, served
      by `Predictor(model_path)` at 640 px in bfloat16 (pool 256, conf 0.25,
@@ -34,7 +45,9 @@ Phases (any failure exits non-zero and prints no result):
      deployed program's images/s at bs=32 and bs=256 (host included, as a
      caller sees it), and its decode + NMS alone with the eager keep loop
      and with the `while_loop` one that export traces; the morphology
-     stage's share of a forward;
+     stage's share of a forward; the phi kernel per scale at bs 32 and 256
+     (device ms, plain ms, bound) and, at bs 32, the CUDA kernels of one
+     scale's phi with its gray preparation (at most 16) with each engine;
   5. training: a seeded float32 YOLOv8n teacher written as a flax msgpack;
      `Trainer` (bf16 convolutions with float32 weights, KD on) over three
      one-batch epochs at 640 px, nc 80, bs 16, on seeded synthetic batches
@@ -124,8 +137,9 @@ Phases (any failure exits non-zero and prints no result):
      mAP moves with every detection, with the one-rank mAP (cuDNN off, as in
      serving's check) and 3 launches per rank per forward.
 
-Output: JSON lines; before the last, the `{"kernels": [...]}` summary; the
-last line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Output: JSON lines; before the last, the `{"kernels": [...]}` summary
+(spatial_quant and phi_tiles, each with `launches_by_path`); the last line
+is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or outside the repository, it exits 2.
 """
 
@@ -141,6 +155,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "mcaq_yolo_tpu_torch/csrc/spatial_quant.cu"
 REPLACES = "mcaq_yolo_tpu/ops/pallas_quant.py:247"
+PHI_SOURCE = "mcaq_yolo_tpu_torch/csrc/morph_tiles.cu"
+PHI_REPLACES = "mcaq_yolo_tpu/core/morphology_lanes.py:395"
+PHI_LAUNCHES = {}  # path -> phi_tiles launches in that path's run
 SCALES = (("P3", 80, 64, 10), ("P4", 40, 128, 10), ("P5", 20, 256, 5))
 IMG = 640
 
@@ -156,6 +173,27 @@ def emit(obj) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def zero_launches() -> None:
+    """Both kernels' launch counts set to 0, just before a path runs."""
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+    from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
+
+    sq.spatial_quantize.launches = 0
+    ml.phi_tiles.launches = 0
+
+
+def phi_launches(path: str, expected=None) -> int:
+    """The phi kernel's launches since `zero_launches`, recorded as `path`'s;
+    held to `expected` when given, else to at least one."""
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+
+    n = PHI_LAUNCHES[path] = ml.phi_tiles.launches
+    check(n == expected if expected is not None else n > 0,
+          f"{path}: the phi kernel launched {n} times (expected "
+          f"{expected if expected is not None else 'at least 1'})")
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -186,7 +224,7 @@ def phase_environment():
           "device": torch.cuda.get_device_name(0), "tf32": False,
           "build_s": round(time.perf_counter() - t0, 3),
           "kernels": list(build.KERNELS), "host_libraries": list(build.HOST_LIBRARIES),
-          "built": sorted(libs), "ptxas": ptxas[:8]})
+          "built": sorted(libs), "ptxas": ptxas[:24]})
     return smi.stdout.strip().splitlines()[0]
 
 
@@ -304,6 +342,142 @@ def phase_kernel_vs_plain(device) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: the phi kernel against its plain version
+# ---------------------------------------------------------------------------
+
+PHI_OPTIONS = [(c, b, k) for c in ("cv2compat", "legacy") for b in ("adaptive", "otsu")
+               for k in (True, False)]
+# (B, ht, wt) of the synthetic maps per tile
+PHI_SIZES = {1: (2, 5, 7), 2: (2, 5, 7), 4: (4, 10, 10), 8: (4, 6, 9), 16: (2, 4, 5),
+             32: (2, 3, 4), 64: (2, 2, 3), 128: (1, 2, 2)}
+PHI_CPU_ATOL = 1e-5        # against the CPU's plain version (its libm differs)
+PHI_CPU_TILE_SHARE = 1e-3  # tiles allowed beyond PHI_CPU_ATOL, each traced
+
+
+def phi_maps(device):
+    """Phase 2b's gray maps, (name, tile, gray (B, ht*tile, wt*tile) float32
+    normalized as `compute_phi_tiles` does): at every tile 1-128 a random
+    map, and one whose first tile row is constant, first tile column zero
+    and last tile a ramp with exactly tied gradients; the gray maps of a
+    random YOLOv8n's P3 / P4 / P5 features at 640 px with downsample 1 and
+    2 (tiles 8, 4, 4 and 4, 4, 4) and of its P5 at 64 and 32 px (tiles 2,
+    1); letterboxed images as Eq.(8) scoring sees them at 128, 256, 640 and
+    1280 px (tiles 16, 32, 64, 128)."""
+    import numpy as np
+    import torch
+
+    from mcaq_yolo_tpu_torch.core import image_ops as iops
+    from mcaq_yolo_tpu_torch.core import morphology as tm
+    from mcaq_yolo_tpu_torch.data.dataset import letterbox
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+    from mcaq_yolo_tpu_torch.models.yolo import images_to_nchw
+
+    maps = []
+    for tile, (B, ht, wt) in PHI_SIZES.items():
+        g = np.random.default_rng(100 + tile).random((B, ht * tile, wt * tile))
+        maps.append(("random", tile, g.astype(np.float32)))
+        g[:, :tile, :] = 0.375
+        g[:, :, :tile] = 0.0
+        y, x = np.mgrid[:tile, :tile]
+        g[:, -tile:, -tile:] = ((x + y) % 8) / 8.0
+        maps.append(("constant_zero_ties", tile, g.astype(np.float32)))
+    maps = [(n, t, iops.normalize01(torch.from_numpy(g).to(device)).contiguous())
+            for n, t, g in maps]
+
+    model = MCAQYOLO(num_classes=80, dtype=torch.bfloat16, device=device, seed=0)
+    images = serving_images(seed=12, count=1)
+    with torch.inference_mode():
+        for size, scales in ((IMG, (0, 1, 2)), (64, (2,)), (32, (2,))):
+            x = torch.from_numpy(np.stack([letterbox(im, size)[0] for im in images[:4]]))
+            feats = model.backbone(images_to_nchw(x.to(device), torch.bfloat16))
+            for i in scales:
+                f = feats[i].permute(0, 2, 3, 1)
+                for ds in ((1, 2) if size == IMG else (1,)):
+                    gray, tile = tm.prepare_gray(f, 8, ds)
+                    maps.append((f"P{i + 3}_{size}px_ds{ds}", tile, gray.contiguous()))
+        for size, n in ((128, 4), (256, 4), (IMG, 2), (1280, 1)):
+            x = torch.from_numpy(np.stack([letterbox(im, size)[0] for im in images[:n]]))
+            gray, tile = tm.prepare_gray(x.to(device), 8, 1)
+            maps.append((f"image_{size}px", tile, gray.contiguous()))
+    return maps
+
+
+def _phi_cpu_causes(gray, tile, canny_impl, binarize_impl, idx):
+    """For the tiles `idx` whose phi on the card is beyond PHI_CPU_ATOL of
+    the CPU's: how many have another edge map on the two devices (NMS: the
+    direction bin from atan2, whose CPU and CUDA libm differ, or a tie), how
+    many only another mask, and how many neither."""
+    from mcaq_yolo_tpu_torch.core import morphology as tm
+
+    tiles = tm.extract_tiles(gray, tile)[0][idx]
+    edge = tm.canny_legacy if canny_impl == "legacy" else tm.canny_cv2compat
+    binz = tm.otsu_binarize if binarize_impl == "otsu" else tm.adaptive_binarize
+    e = (edge(tiles).cpu() != edge(tiles.cpu())).flatten(1).any(1)
+    m = (binz(tiles).cpu() != binz(tiles.cpu())).flatten(1).any(1)
+    return {"edge_map": int(e.sum()), "mask_only": int((m & ~e).sum()),
+            "unexplained": int((~e & ~m).sum())}
+
+
+def phase_phi_vs_plain(device) -> float:
+    """The phi kernel against its plain version on the same maps, in every
+    option: bitwise against the plain version on the card; against the
+    plain version on the CPU, phi within PHI_CPU_ATOL on all but
+    PHI_CPU_TILE_SHARE of the tiles, each such tile traced.  Returns the
+    largest difference from the plain version on the card."""
+    import torch
+
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+
+    worst, n_cases, n_tiles, far_tiles = 0.0, 0, 0, 0
+    causes = {"edge_map": 0, "mask_only": 0, "unexplained": 0}
+    cuda_bitwise = cpu_bitwise = 0
+    for name, tile, gray in phi_maps(device):
+        cpu_gray = gray.cpu()
+        for opt in PHI_OPTIONS:
+            before = ml.phi_tiles.launches
+            k = ml.phi_tiles(gray, tile, *opt)
+            p = ml.phi_tiles_torch(gray, tile, *opt)
+            torch.cuda.synchronize()
+            check(ml.phi_tiles.launches == before + 1, "one phi_tiles call must count one launch")
+            c = ml.phi_tiles_torch(cpu_gray, tile, *opt)
+            kc = k.cpu()
+            mism = int((k.view(torch.int32) != p.view(torch.int32)).sum())
+            err = float((k - p).abs().max())
+            finite = bool(torch.isfinite(k).all())
+            far = ((kc - c).abs() > PHI_CPU_ATOL).reshape(-1, 8).any(1)
+            cpu_mism = int((kc.view(torch.int32) != c.view(torch.int32)).sum())
+            row = {"phase": "phi_vs_plain", "kernel": "phi_tiles", "map": name, "tile": tile,
+                   "shape": list(gray.shape), "options": list(opt), "tiles": far.numel(),
+                   "cuda_mismatches": mism, "cuda_max_abs_err": err,
+                   "cpu_mismatches": cpu_mism, "cpu_max_abs_err": float((kc - c).abs().max()),
+                   "cpu_tiles_beyond_atol": int(far.sum()), "finite": finite}
+            if far.any():
+                row["cpu_causes"] = _phi_cpu_causes(gray, tile, opt[0], opt[1],
+                                                    far.nonzero()[:, 0].to(device))
+                for key, v in row["cpu_causes"].items():
+                    causes[key] += v
+            emit(row)
+            check(mism == 0 and finite, f"phi_tiles differs from its plain version on the "
+                                        f"card: {name} tile {tile} {opt}: {mism} values")
+            worst = max(worst, err)
+            n_cases += 1
+            n_tiles += far.numel()
+            far_tiles += int(far.sum())
+            cuda_bitwise += 1
+            cpu_bitwise += cpu_mism == 0
+    share = far_tiles / n_tiles
+    emit({"phase": "phi_vs_plain", "cases": n_cases, "tiles": n_tiles,
+          "bitwise_vs_cuda_plain": f"{cuda_bitwise}/{n_cases}",
+          "bitwise_vs_cpu_plain": f"{cpu_bitwise}/{n_cases}",
+          "cpu_tiles_beyond_atol": far_tiles, "cpu_share_beyond_atol": share,
+          "cpu_causes": causes, "cpu_atol": PHI_CPU_ATOL, "cpu_tile_share": PHI_CPU_TILE_SHARE})
+    check(share <= PHI_CPU_TILE_SHARE and causes["unexplained"] == 0,
+          f"phi_tiles against the CPU's plain version: {far_tiles} of {n_tiles} tiles beyond "
+          f"{PHI_CPU_ATOL}, causes {causes}")
+    return worst
+
+
+# ---------------------------------------------------------------------------
 # Phase 3
 # ---------------------------------------------------------------------------
 
@@ -408,13 +582,14 @@ def phase_deployed_program(device, dtype, workdir: Path):
     check(pred.pre_topk == 256 and pred.model.morph_downsample == 2, "meta not applied")
     images = serving_images(seed=1, count=3)
 
-    sq.spatial_quantize.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     results = pred.predict_batch(images, batch_size=8)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = sq.spatial_quantize.launches
     forwards = 3
+    phi = phi_launches("deployed", 3 * forwards)  # one per scale per forward
 
     check(len(results) == len(images), "predict_batch dropped images")
     bits = np.concatenate([r["bit_map"].ravel() for r in results])
@@ -429,7 +604,7 @@ def phase_deployed_program(device, dtype, workdir: Path):
           f"spatial_quant launched {launches} times in {forwards} forwards (expected 3 each)")
     emit({"phase": "deployed_program", "images": len(images), "batches": forwards,
           "batch_size": 8, "img_size": IMG, "dtype": str(dtype), "wall_s": round(wall, 3),
-          "launches": {"spatial_quant": launches},
+          "launches": {"spatial_quant": launches, "phi_tiles": phi},
           "avg_bits": [round(r["avg_bits"], 4) for r in results[::8]],
           "bit_widths_seen": sorted(float(b) for b in np.unique(bits)),
           "detections": sum(len(r["detections"]) for r in results),
@@ -452,31 +627,40 @@ def backend_parity(pred, images, device, phase: str) -> int:
 def model_parity(model, x, phase: str) -> int:
     """`model`'s eval forward on x with quant_backend 'auto' (the kernel) and
     'torch' (its plain version): raw maps bitwise equal, 3 launches in the
-    kernel's forward, none in the plain one.  Returns the kernel's launches."""
+    kernel's forward, none in the plain one.  Both forwards run the model's
+    phi engine ('lanes': the phi kernel, 3 launches each).  Returns the
+    kernel's launches."""
     import torch
 
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
     from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
 
     with torch.inference_mode():
-        before = sq.spatial_quantize.launches
+        before, phi0 = sq.spatial_quantize.launches, ml.phi_tiles.launches
         raw_k, _ = model(x)
         torch.cuda.synchronize()
         launches = sq.spatial_quantize.launches - before
+        phi_k = ml.phi_tiles.launches - phi0
         model.set_quant_backend("torch")
         raw_p, _ = model(x)
         model.set_quant_backend("auto")
         plain_launches = sq.spatial_quantize.launches - before - launches
+        phi_p = ml.phi_tiles.launches - phi0 - phi_k
     same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                for a, b in zip(raw_k, raw_p))
     finite = all(bool(torch.isfinite(a).all()) for a in raw_k)
     emit({"phase": phase, "raw_maps_bitwise_equal": same, "finite": finite,
           "batch": int(x.shape[0]), "shapes": [list(a.shape) for a in raw_k],
-          "launches": {"kernel_forward": launches, "plain_forward": plain_launches}})
+          "launches": {"kernel_forward": launches, "plain_forward": plain_launches,
+                       "phi_kernel_forward": phi_k, "phi_plain_forward": phi_p}})
     check(same and finite, f"{phase}: raw maps differ between quant_backend 'auto' and "
                            "'torch'")
     check(launches == 3 and plain_launches == 0,
           f"{phase}: {launches} launches through the kernel, {plain_launches} through the "
           "plain version (expected 3 and 0)")
+    check(phi_k == phi_p == 3 * (model.complexity_analyzer.tile_engine == "lanes"),
+          f"{phase}: phi launches {phi_k} and {phi_p} in the two forwards (expected the "
+          "same engine in both, 3 each)")
     return launches
 
 
@@ -567,6 +751,8 @@ def phase_timings(pred, device, dtype):
         nms_timing(pred, xb)
         del xb
 
+    phi_rows = phi_timings(model, x32, rng, device, dtype)
+
     with torch.inference_mode():
         feats = model.backbone(images_to_nchw(x32, dtype))
 
@@ -581,7 +767,67 @@ def phase_timings(pred, device, dtype):
     emit({"phase": "forward_breakdown", "batch": 32, "forward_ms": fwd_ms,
           "backbone_ms": bb_ms, "morphology_and_mapper_ms": morph_ms,
           "morphology_share": morph_ms / fwd_ms})
-    return rows, throughput
+    return rows, throughput, phi_rows
+
+
+def phi_timings(model, x32, rng, device, dtype):
+    """The phi kernel at each scale of the deployed model (downsample 2: tile
+    4 on 40 x 40, 40 x 40 and 20 x 20 gray maps) at bs 32 and 256: the
+    device time of the kernel (8 launches back to back) and of its plain
+    version (one call), queued behind a device sleep, median of 21, and the
+    bound; at bs 32, the CUDA kernels of one scale's phi (gray preparation
+    included) with each engine, counted from CUDA graph captures."""
+    import numpy as np
+    import torch
+
+    from mcaq_yolo_tpu_torch.core import morphology as tm
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+    from mcaq_yolo_tpu_torch.models.yolo import images_to_nchw
+    from mcaq_yolo_tpu_torch.utils import profiling
+    from mcaq_yolo_tpu_torch.utils.cuda_timing import bound_ms, cuda_ms
+
+    rows = []
+    grid, ds = model.grid_size, model.morph_downsample
+    for bs in (32, 256):
+        xb = x32 if bs == 32 else torch.from_numpy(
+            rng.integers(0, 256, (bs, IMG, IMG, 3), dtype=np.uint8)).to(device)
+        with torch.inference_mode():
+            feats = model.backbone(images_to_nchw(xb, dtype))
+            for (name, *_), f in zip(SCALES, feats):
+                xf = f.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+                gray, tile = tm.prepare_gray(xf, grid, ds)
+                n_bytes, n_ops = ml.phi_tiles_bytes(gray, tile), ml.phi_tiles_ops(gray.numel())
+                row = {"phase": "phi_timing", "kernel": "phi_tiles", "scale": name, "batch": bs,
+                       "gray": list(gray.shape), "tile": tile, "bytes": n_bytes, "ops": n_ops,
+                       "ms": cuda_ms(lambda k: ml.phi_tiles(gray, tile), inner=8,
+                                     device_only=True),
+                       "plain_ms": cuda_ms(lambda k: ml.phi_tiles_torch(gray, tile),
+                                           device_only=True),
+                       "ms_host_paced": cuda_ms(lambda k: ml.phi_tiles(gray, tile), inner=8),
+                       "library_ms": None}
+                row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops)
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                if bs == 32:
+                    n0 = ml.phi_tiles.launches
+                    row["cuda_kernels"] = {
+                        "phi_lanes": profiling.cuda_kernels(
+                            lambda t: tm.compute_phi_tiles(t, grid_size=grid, downsample=ds)[0],
+                            xf),
+                        "phi_rows": profiling.cuda_kernels(
+                            lambda t: tm.compute_phi_tiles(t, grid_size=grid, downsample=ds,
+                                                           tile_engine="rows")[0], xf)}
+                    # cuda_kernels calls its function 3 times: the lanes phi
+                    # launches the kernel once each, the rows phi never
+                    row["phi_launches_in_counts"] = ml.phi_tiles.launches - n0
+                    check(row["cuda_kernels"]["phi_lanes"] <= 16
+                          and row["phi_launches_in_counts"] == 3,
+                          f"phi at {name}: {row['cuda_kernels']} kernels, "
+                          f"{row['phi_launches_in_counts']} phi launches (expected <= 16 "
+                          "kernels, one of them the phi kernel)")
+                rows.append(row)
+                emit(row)
+        del xb, feats
+    return rows
 
 
 def nms_timing(pred, xb):
@@ -680,13 +926,14 @@ def phase_training(device, workdir: Path, img: int = IMG, batch: int = TRAIN_BAT
     trainer = Trainer(config, batches, device=device)
     check(trainer.amp_dtype == torch.bfloat16 or device.type != "cuda", "amp not bf16")
 
-    sq.spatial_quantize.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     epochs = [trainer.train_epoch(e) for e in range(3)]
     if device.type == "cuda":
         torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_launches = sq.spatial_quantize.launches
+    train_phi = phi_launches("training", 3 * 3)  # 3 one-batch epochs, 3 scales
     grads = _grad_groups(trainer.model)
     grad_norms = {k: float(v.norm()) for k, v in grads.items()}
     num_batches = [int(q.num_batches) for q in trainer.model.quantizers]
@@ -696,7 +943,7 @@ def phase_training(device, workdir: Path, img: int = IMG, batch: int = TRAIN_BAT
           "epochs": [{k: (round(v, 6) if isinstance(v, float) else v) for k, v in e.items()}
                      for e in epochs],
           "grad_norms_last_step": grad_norms, "quantizer_num_batches": num_batches,
-          "launches": {"spatial_quant": train_launches}})
+          "launches": {"spatial_quant": train_launches, "phi_tiles": train_phi}})
     check([int(e["stage"]) for e in epochs] == [1, 3, 3], "curriculum stages are not 1, 3, 3")
     check(epochs[0]["temperature"] == 10.0 and [e["quantize"] for e in epochs] == [0, 1, 1],
           "Stage 1 must run at temperature 10 without quantization")
@@ -709,14 +956,15 @@ def phase_training(device, workdir: Path, img: int = IMG, batch: int = TRAIN_BAT
     check(train_launches == 0, "the training forward ran the eval kernel")
 
     calib = synthetic_batches(2, batch, img, 80, seed=4)
-    sq.spatial_quantize.launches = 0
+    zero_launches()
     calibrate(trainer.model, calib, num_images=2 * batch)
     if device.type == "cuda":
         torch.cuda.synchronize()
     calib_launches = sq.spatial_quantize.launches
+    calib_phi = phi_launches("calibration", 3 * 2)
     stats = [(int(q.num_batches), bool(q.frozen)) for q in trainer.model.quantizers]
     emit({"phase": "calibration", "batches": 2, "quantizer_state": stats,
-          "launches": {"spatial_quant": calib_launches}})
+          "launches": {"spatial_quant": calib_launches, "phi_tiles": calib_phi}})
     check(stats == [(4, True)] * 3, f"calibration state {stats}")
     check(calib_launches == 3 * 2, f"spatial_quant launched {calib_launches} times in "
                                    "2 calibration forwards (expected 3 each)")
@@ -726,15 +974,16 @@ def phase_training(device, workdir: Path, img: int = IMG, batch: int = TRAIN_BAT
                      dtype=torch.bfloat16, device=device)
     check(all(bool(q.frozen) for q in pred.model.quantizers), "frozen stats not served")
     images = serving_images(seed=5, count=1)
-    sq.spatial_quantize.launches = 0
+    zero_launches()
     results = pred.predict_batch(images, batch_size=8)
     if device.type == "cuda":
         torch.cuda.synchronize()
     serve_launches = sq.spatial_quantize.launches
+    serve_phi = phi_launches("trained_serving", 3)
     emit({"phase": "trained_serving", "images": len(results), "batch_size": 8,
           "avg_bits": round(results[0]["avg_bits"], 4),
           "detections": sum(len(r["detections"]) for r in results),
-          "launches": {"spatial_quant": serve_launches}})
+          "launches": {"spatial_quant": serve_launches, "phi_tiles": serve_phi}})
     for r in results:
         check(2.0 <= r["avg_bits"] <= 8.0 and np.isfinite(r["complexity_map"]).all(),
               "trained model served a bad result")
@@ -973,6 +1222,7 @@ def phase_train_from_disk(device, workdir: Path, gpu: str, img: int = IMG,
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
     from mcaq_yolo_tpu_torch.data.dataset import DataLoader, YOLODataset, make_synthetic_dataset_v3
     from mcaq_yolo_tpu_torch.data.device_pipeline import augment_batch
     from mcaq_yolo_tpu_torch.inference import Predictor
@@ -1011,14 +1261,17 @@ def phase_train_from_disk(device, workdir: Path, gpu: str, img: int = IMG,
     check((out / "complexity_scores.npy").exists()
           and (out / "complexity_scores.npy.meta.json").exists(), "scores cache not written")
     torch.cuda.synchronize()
+    zero_launches()
     t0 = time.perf_counter()
     rescored = trainer._compute_complexity_scores(use_cache=False)
     score_s = time.perf_counter() - t0
+    # compute_dataset_complexity's batches of 8, one launch (64 x 64 tiles) each
+    phi_launches("eq8_scoring", -(-DISK_TRAIN // 8))
     check(np.array_equal(rescored, trainer.complexity_scores), "Eq.(8) scores not deterministic")
     fw0 = trainer.model.complexity_analyzer.feature_weights.clone()
 
     # kernel launches per path, against the eval forwards that ran them
-    counts = {"evaluate": [0, 0], "val_loss": [0, 0]}
+    counts = {"evaluate": [0, 0, 0], "val_loss": [0, 0, 0]}
     forwards = [0]
 
     def count_forward(module, args, kwargs):
@@ -1027,23 +1280,28 @@ def phase_train_from_disk(device, workdir: Path, gpu: str, img: int = IMG,
 
     def counted(name, fn):
         def run(epoch):
-            l0, f0 = sq.spatial_quantize.launches, forwards[0]
+            l0, f0, p0 = sq.spatial_quantize.launches, forwards[0], ml.phi_tiles.launches
             r = fn(epoch)
             torch.cuda.synchronize()
             counts[name][0] += sq.spatial_quantize.launches - l0
             counts[name][1] += forwards[0] - f0
+            counts[name][2] += ml.phi_tiles.launches - p0
             return r
         return run
 
     trainer.evaluate = counted("evaluate", trainer.evaluate)
     trainer.compute_val_loss = counted("val_loss", trainer.compute_val_loss)
     hook = trainer.model.register_forward_pre_hook(count_forward, with_kwargs=True)
-    sq.spatial_quantize.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     result = trainer.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = sq.spatial_quantize.launches
+    phi_launches("train_from_disk")
+    for name, (_, _, n_phi) in counts.items():
+        PHI_LAUNCHES[name] = n_phi
+        check(n_phi > 0, f"{name}: the phi kernel never launched")
     hook.remove()
     hist = trainer.history
     emit({"phase": "train_from_disk", "gpu": gpu, "images": [DISK_TRAIN, DISK_VAL],
@@ -1058,7 +1316,9 @@ def phase_train_from_disk(device, workdir: Path, gpu: str, img: int = IMG,
           "evaluate_images_per_s": [DISK_VAL / h["eval_s"] for h in hist],
           "feature_weights": [round(float(v), 6) for v in
                               trainer.model.complexity_analyzer.feature_weights],
-          "launches": {"spatial_quant": launches, **{k: v[0] for k, v in counts.items()}},
+          "launches": {"spatial_quant": launches, **{k: v[0] for k, v in counts.items()},
+                       "phi_tiles": PHI_LAUNCHES["train_from_disk"],
+                       **{f"phi_{k}": v[2] for k, v in counts.items()}},
           "quantized_eval_forwards": {k: v[1] for k, v in counts.items()}})
     check([h["stage"] for h in hist] == [1, 1, 2, 3, 3], "stages are not 1, 1, 2, 3, 3")
     check(hist[0]["subset_size"] is not None and hist[0]["subset_size"] < DISK_TRAIN,
@@ -1072,7 +1332,7 @@ def phase_train_from_disk(device, workdir: Path, gpu: str, img: int = IMG,
         if h["stage"] >= 2:
             check(np.isfinite(h["map50"]) and np.isfinite(h["map50_95"])
                   and 2.0 <= h["avg_bits"] <= 8.0, f"bad evaluate in epoch {h['epoch']}: {h}")
-    for name, (n_launch, n_fwd) in counts.items():
+    for name, (n_launch, n_fwd, _) in counts.items():
         check(n_fwd > 0 and n_launch == 3 * n_fwd,
               f"{name}: {n_launch} spatial_quant launches in {n_fwd} quantized forwards")
     check(launches == sum(v[0] for v in counts.values()), "a launch outside evaluate/val loss")
@@ -1095,13 +1355,14 @@ def phase_train_from_disk(device, workdir: Path, gpu: str, img: int = IMG,
     pred = Predictor(str(out / "best.ckpt"), conf_threshold=0.25, iou_threshold=0.45,
                      max_det=300, dtype=torch.bfloat16, device=device)
     images = serving_images(seed=8, count=1)
-    sq.spatial_quantize.launches = 0
+    zero_launches()
     results = pred.predict_batch(images, batch_size=8)
     torch.cuda.synchronize()
     serve_launches = sq.spatial_quantize.launches
+    serve_phi = phi_launches("resumed_serving", 3)
     emit({"phase": "resumed_serving", "gpu": gpu, "images": len(results),
           "avg_bits": round(results[0]["avg_bits"], 4),
-          "launches": {"spatial_quant": serve_launches}})
+          "launches": {"spatial_quant": serve_launches, "phi_tiles": serve_phi}})
     check(serve_launches == 3, f"best.ckpt served with {serve_launches} launches (expected 3)")
     for r in results:
         check(2.0 <= r["avg_bits"] <= 8.0 and np.isfinite(r["complexity_map"]).all(),
@@ -1202,17 +1463,20 @@ import json, sys, time
 t0 = time.perf_counter()
 import torch
 from mcaq_yolo_tpu_torch import inference
+from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
 from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
 split = {"import_s": time.perf_counter() - t0}
 
 def timed(name, fn):
     def run(self, *a, **k):
-        n, t = sq.spatial_quantize.launches, time.perf_counter()
+        n, m = sq.spatial_quantize.launches, ml.phi_tiles.launches
+        t = time.perf_counter()
         out = fn(self, *a, **k)
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         split[name + "_s"] = time.perf_counter() - t
         split[name + "_launches"] = sq.spatial_quantize.launches - n
+        split[name + "_phi_launches"] = ml.phi_tiles.launches - m
         return out
     return run
 
@@ -1220,11 +1484,12 @@ P = inference.Predictor
 P.__init__ = timed("predictor", P.__init__)
 P._warmup = timed("warmup", P._warmup)
 P.predict_batch = timed("predict_batch", P.predict_batch)
-sq.spatial_quantize.launches = 0
+sq.spatial_quantize.launches = ml.phi_tiles.launches = 0
 t = time.perf_counter()
 inference.main(sys.argv[1:])
 split["main_s"] = time.perf_counter() - t
 split["launches"] = sq.spatial_quantize.launches
+split["phi_launches"] = ml.phi_tiles.launches
 print(json.dumps(split))
 """
 MODES = ("minmax", "percentile", "entropy", "mse")
@@ -1308,7 +1573,7 @@ def phase_deploy(device, workdir: Path, gpu: str, sd, disk_dir: Path):
     from mcaq_yolo_tpu_torch.calibrate import calibrate
     from mcaq_yolo_tpu_torch.data.dataset import letterbox, read_image, write_image
     from mcaq_yolo_tpu_torch.export import (
-        count_quant_nodes, export_inference, load_exported, make_inference_fn)
+        count_phi_nodes, count_quant_nodes, export_inference, load_exported, make_inference_fn)
     from mcaq_yolo_tpu_torch.inference import Predictor
     from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
     from mcaq_yolo_tpu_torch.models.weights_io import (
@@ -1333,10 +1598,11 @@ def phase_deploy(device, workdir: Path, gpu: str, sd, disk_dir: Path):
                          dtype=dtype, device=device, seed=0)
         load_jax_variables(model, base)
         torch.cuda.reset_peak_memory_stats(device)
-        sq.spatial_quantize.launches = 0
+        zero_launches()
         _, calib_s = _synced_s(lambda: calibrate(model, calib,
                                                  num_images=CALIB_BATCHES * CALIB_BATCH))
         n = sq.spatial_quantize.launches
+        n_phi = phi_launches(f"calibration_{mode}", 3 * CALIB_BATCHES)
         peak = torch.cuda.max_memory_allocated(device) / 1e9
         state = [(int(q.num_batches), bool(q.frozen)) for q in model.quantizers]
         check(n == 3 * CALIB_BATCHES, f"{mode}: calibration launched the kernel {n} times "
@@ -1357,7 +1623,8 @@ def phase_deploy(device, workdir: Path, gpu: str, sd, disk_dir: Path):
         launches[f"calibration_{mode}"] = n
         row = {"mode": mode, "calibration_s": calib_s, "images": CALIB_BATCHES * CALIB_BATCH,
                "calibration_images_per_s": CALIB_BATCHES * CALIB_BATCH / calib_s,
-               "peak_mem_GB": peak, "launches": n, "eval_forward_batch": batch,
+               "peak_mem_GB": peak, "launches": n, "phi_launches": n_phi,
+               "eval_forward_batch": batch,
                "eval_forward_launches": eval_launches}
         emit({"phase": "calibrate", "gpu": gpu, **row})
         del model
@@ -1367,10 +1634,11 @@ def phase_deploy(device, workdir: Path, gpu: str, sd, disk_dir: Path):
     pred = Predictor(str(ckpts["minmax"]), conf_threshold=0.25, iou_threshold=0.45,
                      max_det=300, dtype=dtype, device=device)
     images = serving_images(seed=10, count=1)
-    sq.spatial_quantize.launches = 0
+    zero_launches()
     results = pred.predict_batch(images, batch_size=8)
     torch.cuda.synchronize()
     launches["deployed_serving"] = sq.spatial_quantize.launches
+    phi_launches("deployed_serving", 3)
     check(launches["deployed_serving"] == 3, f"serving launched the kernel "
                                              f"{launches['deployed_serving']} times (expected 3)")
     for r in results:
@@ -1387,6 +1655,7 @@ def phase_deploy(device, workdir: Path, gpu: str, sd, disk_dir: Path):
     exported, export_s = _synced_s(lambda: export_inference(model, batch_size=EXPORT_BATCH,
                                                             img_size=IMG, with_nms=True))
     nodes = count_quant_nodes(exported)
+    phi_nodes = count_phi_nodes(exported)
     blob = workdir / "mcaq_yolo.pt2"
     torch.export.save(exported, str(blob))
     del exported
@@ -1394,15 +1663,17 @@ def phase_deploy(device, workdir: Path, gpu: str, sd, disk_dir: Path):
     eager = make_inference_fn(model)
     with torch.no_grad():
         ref = eager(xb)
-        sq.spatial_quantize.launches = 0
+        zero_launches()
         out = program(xb)
         torch.cuda.synchronize()
         launches["exported_program"] = sq.spatial_quantize.launches
+        phi_launches("exported_program", 3)
     same = [bool(torch.equal(a, b)) for a, b in zip(out, ref)]
     with torch.no_grad():
         loaded_ms = cuda_ms(lambda k: program(xb))
         eager_ms = cuda_ms(lambda k: eager(xb))
     emit({"phase": "export", "gpu": gpu, "batch": EXPORT_BATCH, "img_size": IMG, "nodes": nodes,
+          "phi_nodes": phi_nodes, "phi_launches": PHI_LAUNCHES["exported_program"],
           "export_s": export_s, "load_s": load_s, "artifact_MB": blob.stat().st_size / 1e6,
           "bitwise_equal": dict(zip(("boxes", "scores", "classes", "valid", "avg_bits"), same)),
           "detections": int(ref[3].sum()), "launches": launches["exported_program"],
@@ -1411,6 +1682,7 @@ def phase_deploy(device, workdir: Path, gpu: str, sd, disk_dir: Path):
           "eager_images_per_s": EXPORT_BATCH / (eager_ms * 1e-3),
           "timing": "CUDA events around one call, median of 21"})
     check(nodes == 3, f"the exported graph holds {nodes} spatial_quantize nodes (expected 3)")
+    check(phi_nodes == 3, f"the exported graph holds {phi_nodes} phi_tiles nodes (expected 3)")
     check(all(same), f"the loaded program differs from the eager one: {same}")
     check(launches["exported_program"] == 3, "one call of the loaded program launched the "
           f"kernel {launches['exported_program']} times (expected 3)")
@@ -1432,6 +1704,9 @@ def phase_deploy(device, workdir: Path, gpu: str, sd, disk_dir: Path):
     check(r.returncode == 0, f"the inference CLI failed: {r.stderr[-2000:]}")
     run = json.loads(r.stdout.strip().splitlines()[-1])
     launches["inference_cli"] = run["launches"]
+    PHI_LAUNCHES["inference_cli"] = run["phi_launches"]
+    check(run["phi_launches"] == 9 and run["predict_batch_phi_launches"] == 3,
+          f"the CLI's run launched the phi kernel {run['phi_launches']} times (expected 9)")
     summary = json.loads(out_json.read_text())
     files = sorted(str(p) for p in src.glob("*.png"))
     # the CLI process runs with PyTorch's default cuDNN settings
@@ -1569,7 +1844,7 @@ def phase_evidence_scripts(device, workdir: Path, gpu: str):
 
     def launched(fn):
         torch.cuda.synchronize()
-        sq.spatial_quantize.launches = 0
+        zero_launches()
         out = fn()
         torch.cuda.synchronize()
         return out, sq.spatial_quantize.launches
@@ -1579,6 +1854,7 @@ def phase_evidence_scripts(device, workdir: Path, gpu: str):
         own = aux["bit_map"]
         ext, n_own = launched(lambda: m3_permutation.apply_external_bit_maps(model, x, own))
         check(n_own == 3, f"the external-map forward launched {n_own} times (expected 3)")
+        phi_launches("external_bit_maps", 0)  # the maps replace the analyzer
         check(all(torch.equal(a, b) for a, b in zip(raw, ext)),
               "apply_external_bit_maps with the model's own maps differs from its forward")
 
@@ -1655,11 +1931,13 @@ def phase_evidence_scripts(device, workdir: Path, gpu: str):
             (res, n_launch), s = _synced_s(lambda: launched(lambda: runs[name](bs)))
         finally:
             undo()
+        n_phi = phi_launches(f"script_{name}")
         # downsample_fidelity's loader drops a ragged tail, the others keep it
         n_batches = n_val // bs if name == "downsample_fidelity" else -(-n_val // bs)
         expected = n_batches * per_batch
         emit({"phase": f"script_{name}", "gpu": gpu, "batch": bs, "wall_s": s,
-              "launches": n_launch, "quantized_forwards": counter[0], "result": res})
+              "launches": n_launch, "phi_launches": n_phi, "quantized_forwards": counter[0],
+              "result": res})
         check(counter[0] == expected and n_launch == 3 * expected,
               f"{name}: {n_launch} launches in {counter[0]} quantized forwards "
               f"(expected {expected} forwards)")
@@ -1706,20 +1984,23 @@ def _path_launches(name, fn, forwards=None):
     """Run fn with the launch count zeroed before and read after, the
     quantizing transforms counted; check launches = 3 x the quantized
     forwards (= transforms / 3), and that there were `forwards` of them
-    when given.  Returns (result, launches, seconds)."""
+    when given; the phi kernel's launches recorded under `name`.  Returns
+    (result, launches, seconds)."""
     import torch
 
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
     from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
 
     counter, undo = _counting_quantized_transforms()
     try:
         torch.cuda.synchronize()
-        sq.spatial_quantize.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = sq.spatial_quantize.launches
+        PHI_LAUNCHES[name] = ml.phi_tiles.launches
     finally:
         undo()
     check(launches == counter[0] and counter[0] % 3 == 0,
@@ -1827,6 +2108,8 @@ def phase_diagnostics(device, gpu: str, workdir: Path):
         # that of two CUDA graph captures, which `cuda_kernels` holds equal)
         check(all(isinstance(v, int) and v > 0 for v in kernels.values())
               and all(res[k] > 0 for k in kernels), f"profile_morphology {name}: {res}")
+        check(kernels["phi_lanes"] == 1, f"profile_morphology {name}: the fused phi took "
+                                         f"{kernels['phi_lanes']} kernels")
     launches["profile_morphology"] = n_morph
 
     res, n, s = _path_launches(
@@ -1842,7 +2125,8 @@ def phase_diagnostics(device, gpu: str, workdir: Path):
     n_agree = 0
     for corpus, mode, legacy in AGREEMENT_ARMS:
         res, n, s = _path_launches(
-            f"backend_agreement_{corpus}", lambda: backend_agreement.run(
+            f"backend_agreement_{corpus}_{mode}" + ("_legacy" if legacy else ""),
+            lambda: backend_agreement.run(
                 num_images=16, img_size=256, legacy=legacy, metric_mode=mode,
                 corpus=corpus, device=device), forwards=0)
         n_agree += n
@@ -1853,6 +2137,13 @@ def phase_diagnostics(device, gpu: str, workdir: Path):
         check(np.isfinite(fused), f"backend_agreement {corpus} {mode} legacy={legacy}: "
                                   f"fused Pearson {fused}")
     launches["backend_agreement"] = n_agree
+    # every path of this phase runs the model's or the metrics' 'lanes' engine
+    # but the global-mode agreement arm
+    for path in [p for p in PHI_LAUNCHES if p.startswith((
+            "component_breakdown", "roofline", "perf_sweep_diag", "profile_morphology",
+            "train_breakdown", "backend_agreement"))]:
+        check(PHI_LAUNCHES[path] > 0 or path.endswith("_global"),
+              f"{path}: the phi kernel never launched")
 
     x = torch.from_numpy(rng.integers(0, 256, (8, IMG, IMG, 3), dtype=np.uint8)).to(device)
     with torch.inference_mode(), profiling.trace(str(workdir / "trace")) as log_dir:
@@ -1944,6 +2235,7 @@ def _md_cases(work: Path, device, mesh, inputs: dict) -> dict:
     import numpy as np
     import torch
 
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
     from mcaq_yolo_tpu_torch.data.dataset import DataLoader, YOLODataset
     from mcaq_yolo_tpu_torch.inference import Predictor
     from mcaq_yolo_tpu_torch.models.weights_io import COLLECTIONS, load_jax_variables
@@ -1976,10 +2268,10 @@ def _md_cases(work: Path, device, mesh, inputs: dict) -> dict:
             return [(np.array([d["class_id"] for d in r["detections"]]),
                      np.array([d["confidence"] for d in r["detections"]])) for r in res]
 
-        sq.spatial_quantize.launches = 0
+        zero_launches()
         deployed = dets(pred.predict_batch(images, batch_size=chunk))
         torch.cuda.synchronize()
-        launches = sq.spatial_quantize.launches
+        launches, phi = sq.spatial_quantize.launches, ml.phi_tiles.launches
         # cuDNN picks its algorithm by the batch, so one image rounds
         # differently in a 6- and a 12-image batch; PyTorch's own
         # convolution (im2col and a GEMM per image) does not
@@ -1988,7 +2280,8 @@ def _md_cases(work: Path, device, mesh, inputs: dict) -> dict:
             per_image = dets(pred.predict_batch(images, batch_size=chunk))
         finally:
             torch.backends.cudnn.enabled = True
-        return {"launches": launches, "dets": deployed, "dets_no_cudnn": per_image}
+        return {"launches": launches, "phi_launches": phi, "dets": deployed,
+                "dets_no_cudnn": per_image}
 
     timed_part("serving", serve)
 
@@ -2010,11 +2303,11 @@ def _md_cases(work: Path, device, mesh, inputs: dict) -> dict:
         with np.load(inputs["val_labels"]) as labels:
             for i, b in enumerate(batches):
                 b.update({k: labels[k][i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH] for k in labels})
-        sq.spatial_quantize.launches = 0
+        zero_launches()
         res = trainer.evaluate(2)  # Stage 3: quantized
         torch.cuda.synchronize()
         return {"result": res, "launches": sq.spatial_quantize.launches,
-                "forwards": len(batches)}
+                "phi_launches": ml.phi_tiles.launches, "forwards": len(batches)}
 
     # without cuDNN, as serving's check: its algorithm follows the batch (16
     # images in one rank, 8 in each of two), PyTorch's own convolution does not
@@ -2155,13 +2448,16 @@ def phase_multi_device(device, workdir: Path, gpu: str, inputs: dict) -> dict:
           "dp_serving": {"images": MD_SERVE, "batch_size": MD_CHUNK,
                          "forwards_per_rank": forwards,
                          "launches_per_rank": [r["serving"]["launches"] for r in ranks],
+                         "phi_launches_per_rank": [r["serving"]["phi_launches"] for r in ranks],
                          "detections": sum(len(d[0]) for d in serve_two["dets"]),
                          "equal_within_bound_without_cudnn": conf_close,
                          "bitwise_without_cudnn": conf_bitwise,
                          "images_differing_with_cudnn": cudnn_differ},
           "dp_evaluate": {"one_rank": ev_one["result"], "two_ranks": ev_two["result"],
                           "forwards_per_rank": ev_two["forwards"],
-                          "launches_per_rank": [r["evaluate"]["launches"] for r in ranks]},
+                          "launches_per_rank": [r["evaluate"]["launches"] for r in ranks],
+                          "phi_launches_per_rank": [r["evaluate"]["phi_launches"]
+                                                    for r in ranks]},
           "wall_s": {"one_rank": round(t_one, 3), "ranks": round(t_ranks, 3),
                      "parts_one_rank": one["wall_s"], "parts_rank0": ranks[0]["wall_s"]}})
     for mode, t in training.items():
@@ -2187,6 +2483,11 @@ def phase_multi_device(device, workdir: Path, gpu: str, inputs: dict) -> dict:
           "distributed evaluate differs from one rank")
     check(all(r["evaluate"]["launches"] == 3 * ev_two["forwards"] for r in ranks),
           "distributed evaluate's launches are not 3 per forward per rank")
+    check(all(r["serving"]["phi_launches"] == 3 * forwards
+              and r["evaluate"]["phi_launches"] == 3 * ev_two["forwards"] for r in ranks),
+          "the ranks' phi launches are not 3 per forward")
+    PHI_LAUNCHES["dp_serving"] = serve_two["phi_launches"]
+    PHI_LAUNCHES["dp_evaluate"] = ev_two["phi_launches"]
     return {"dp_serving": serve_two["launches"], "dp_evaluate": ev_two["launches"]}
 
 
@@ -2203,6 +2504,22 @@ def _numbers(tree, skip=("spearman_rho", "spearman_p", "quartiles")):
             yield float(v)
 
 
+def phi_kernel_entry(phi_rows, worst: float) -> dict:
+    """The phi kernel's entry of the `kernels` line: its times summed over the
+    three scales of one bs-32 forward, the bound of that work, and its
+    launches on every path (the deployed one as `launches`)."""
+    from mcaq_yolo_tpu_torch.utils.cuda_timing import bound_ms
+
+    bs32 = [r for r in phi_rows if r["batch"] == 32]
+    bound, by = bound_ms(sum(r["bytes"] for r in bs32), sum(r["ops"] for r in bs32))
+    check(PHI_LAUNCHES.get("deployed", 0) > 0, "the main path never launched the phi kernel")
+    return {"name": "phi_tiles", "route": "cuda", "source": PHI_SOURCE,
+            "replaces": PHI_REPLACES, "launches": PHI_LAUNCHES["deployed"],
+            "max_abs_err": worst, "ms": sum(r["ms"] for r in bs32),
+            "plain_ms": sum(r["plain_ms"] for r in bs32), "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "launches_by_path": dict(PHI_LAUNCHES)}
+
+
 def main() -> int:
     try:
         import torch
@@ -2212,9 +2529,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if not (ROOT / KERNEL_SOURCE).is_file():
-        print(f"chip_smoke: {KERNEL_SOURCE} not found; run from the repository",
-              file=sys.stderr)
+    if not all((ROOT / src).is_file() for src in (KERNEL_SOURCE, PHI_SOURCE)):
+        print(f"chip_smoke: {KERNEL_SOURCE} or {PHI_SOURCE} not found; run from the "
+              "repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     device = torch.device("cuda")
@@ -2232,12 +2549,14 @@ def main() -> int:
     lap("1_environment")
     worst = phase_kernel_vs_plain(device)
     lap("2_kernel_vs_plain")
+    phi_worst = phase_phi_vs_plain(device)
+    lap("2b_phi_vs_plain")
     scratch = ROOT / "build"  # gitignored; the run writes nothing outside the checkout
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         pred, launches = phase_deployed_program(device, dtype, Path(tmp))
         lap("3_deployed_program")
-        rows, _ = phase_timings(pred, device, dtype)
+        rows, _, phi_rows = phase_timings(pred, device, dtype)
         del pred
         lap("4_timings")
         trainer, path_launches = phase_training(device, Path(tmp))
@@ -2269,7 +2588,7 @@ def main() -> int:
         "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
         "library_ms": None,
         "launches_by_path": dict(deployed=launches, **path_launches),
-    }]})
+    }, phi_kernel_entry(phi_rows, phi_worst)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,12 +1,18 @@
 """
 Morphological complexity analysis (port of `mcaq_yolo_tpu/core/morphology.py`).
 
-The per-tile metric mode (the default, and the deployed path) runs the operator
-arithmetic of its default engine, `core/morphology_lanes.py` (separable
-shift-add Gaussian/Sobel, shift-max/min binary morphology, sort-based
-per-tile Otsu).  The reference packs tiles into the TPU's 128 vector lanes
-as (G, t, t, 128); that packing is a TPU register-layout device, so here
-the tiles are a plain batch, (N, t, t) with N = B * ht * wt.
+The per-tile metric mode (the default, and the deployed path) has the
+reference's two tile engines, `tile_engine`:
+  'lanes' (the default)  `core/morphology_lanes.py`: one hand-written CUDA
+      kernel (`csrc/morph_tiles.cu`) computes phi for every tile of a scale
+      in one launch on a CUDA tensor; on a CPU tensor its plain version runs;
+  'rows'  the plain PyTorch ops below on any device: the operator arithmetic
+      of the reference's engines (separable shift-add Gaussian/Sobel,
+      shift-max/min binary morphology, sort-based per-tile Otsu) over the
+      tiles as a plain batch, (N, t, t) with N = B * ht * wt.
+The kernel is held bitwise to the 'rows' ops.  Their two float reductions
+are written out in a fixed order for that (phi3's tile sums pairwise,
+`_tile_sum`; phi1's regression sums over the scales in order, `_scale_sum`).
 
 Per tile (Algorithm 1 lines 1-14): phi1 box-counting fractal dimension of
 the Canny edges, phi2 uniform-LBP entropy, phi3 gradient variance, phi4
@@ -225,12 +231,15 @@ def canny_legacy(tiles: torch.Tensor) -> torch.Tensor:
     return _hysteresis((nms_n > thr).to(tiles.dtype), nms_n > 0.5 * thr, 2)
 
 
+def _adaptive_sigma(block: int) -> float:
+    return 0.3 * ((block - 1) * 0.5 - 1) + 0.8
+
+
 def adaptive_binarize(tiles: torch.Tensor, block: int = 11, C: float = 2.0) -> torch.Tensor:
     """cv2.adaptiveThreshold(GAUSSIAN, BINARY, 11, 2) per tile:
     1 iff src > G11(src) - C in 0..255 units."""
     g255 = tiles * 255.0
-    sigma = 0.3 * ((block - 1) * 0.5 - 1) + 0.8
-    local_mean = _sep_filter(g255, _gaussian_taps(block, sigma), "edge")
+    local_mean = _sep_filter(g255, _gaussian_taps(block, _adaptive_sigma(block)), "edge")
     return (g255 > local_mean - C).to(tiles.dtype)
 
 
@@ -239,8 +248,9 @@ def otsu_binarize(tiles: torch.Tensor) -> torch.Tensor:
     return (tiles > otsu_threshold(tiles)).to(tiles.dtype)
 
 
-_gaussian_taps(5, 1.0)                             # cv2compat Canny's blur
-_gaussian_taps(11, 0.3 * ((11 - 1) * 0.5 - 1) + 0.8)  # adaptive_binarize's default
+ADAPTIVE_SIGMA = _adaptive_sigma(11)  # adaptive_binarize's default block
+_gaussian_taps(5, 1.0)                # cv2compat Canny's blur
+_gaussian_taps(11, ADAPTIVE_SIGMA)
 
 
 # ---------------------------------------------------------------------------
@@ -256,9 +266,30 @@ def _dyadic_scales(tile: int):
     return scales
 
 
+def _scale_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the first axis in index order (a fixed order, which the
+    kernel repeats)."""
+    acc = t[0]
+    for i in range(1, t.shape[0]):
+        acc = acc + t[i]
+    return acc
+
+
+def _tile_sum(x: torch.Tensor) -> torch.Tensor:
+    """(N, t, t) -> (N,): the sum over each tile, pairwise in a fixed order
+    (first half plus second half of the row-major pixels, halving until one
+    is left), which the kernel repeats."""
+    v = x.reshape(x.shape[0], -1)
+    while v.shape[1] > 1:
+        h = v.shape[1] // 2
+        v = v[:, :h] + v[:, h:]
+    return v[:, 0]
+
+
 def _fractal_slope(n: torch.Tensor, scales) -> torch.Tensor:
     """Box counts n (S, ...) at the dyadic `scales` -> the weighted log-log
-    slope (weights e^{-0.1 i}) over the first axis, clipped to [1, 2]."""
+    slope (weights e^{-0.1 i}) over the first axis, clipped to [1, 2]; the
+    sums over the scales in order (`_scale_sum`)."""
     S = len(scales)
     shape = (S,) + (1,) * (n.dim() - 1)
     dev = n.device
@@ -268,11 +299,11 @@ def _fractal_slope(n: torch.Tensor, scales) -> torch.Tensor:
     x = torch.log(s.to(torch.float32)).reshape(shape)
     y = torch.log(n + 1.0)
     w = torch.exp(-0.1 * torch.arange(S, dtype=torch.float32, device=dev)).reshape(shape)
-    w_sum = w.sum(dim=0)
-    x_mean = (w * x).sum(dim=0) / w_sum
-    y_mean = (w * y).sum(dim=0) / w_sum
-    cov = (w * (x - x_mean) * (y - y_mean)).sum(dim=0)
-    var = (w * (x - x_mean) ** 2).sum(dim=0)
+    w_sum = _scale_sum(w)
+    x_mean = _scale_sum(w * x) / w_sum
+    y_mean = _scale_sum(w * y) / w_sum
+    cov = _scale_sum(w * (x - x_mean) * (y - y_mean))
+    var = _scale_sum(w * (x - x_mean) ** 2)
     return torch.clamp(-(cov / (var + 1e-12)), 1.0, 2.0)
 
 
@@ -303,15 +334,19 @@ def _lbp_labels(x: torch.Tensor) -> torch.Tensor:
     return torch.where(trans <= 2.0, n_ones, torch.full_like(n_ones, 9.0))
 
 
+_INV_LOG2_10 = 1.0 / math.log2(10.0)
+
+
 def _entropy10(label: torch.Tensor, tile_mean) -> torch.Tensor:
-    """Entropy of the 10-bin label histogram per tile / log2(10);
-    `tile_mean` takes a {0, 1} map to its per-tile means."""
+    """Entropy of the 10-bin label histogram per tile / log2(10) (as a
+    product with 1 / log2(10): the CPU and CUDA divide by a scalar
+    differently); `tile_mean` takes a {0, 1} map to its per-tile means."""
     ent = None
     for v in range(10):
         p = tile_mean((label == v).to(torch.float32))
         term = p * torch.log2(p + 1e-10)
         ent = -term if ent is None else ent - term
-    return ent / math.log2(10.0)
+    return ent * _INV_LOG2_10
 
 
 def lbp_entropy(tiles: torch.Tensor) -> torch.Tensor:
@@ -333,8 +368,10 @@ def _gradient_variance(gx: torch.Tensor, gy: torch.Tensor, tile_mean) -> torch.T
 
 
 def gradient_variance(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
-    """phi3: Eq.(22) v / (v + 1), v = Var(Gx) + Var(Gy) over the tile."""
-    return _gradient_variance(gx, gy, lambda t: t.mean(dim=(1, 2)))
+    """phi3: Eq.(22) v / (v + 1), v = Var(Gx) + Var(Gy) over the tile, the
+    tile means from pairwise sums (`_tile_sum`)."""
+    n = gx.shape[1] * gx.shape[2]
+    return _gradient_variance(gx, gy, lambda t: _tile_sum(t) / n)
 
 
 def _euler_windows(m: torch.Tensor) -> torch.Tensor:
@@ -508,12 +545,48 @@ def phi_metrics_global(gray: torch.Tensor, tile: int, canny_impl: str = "cv2comp
 CANNY_IMPLS = ("cv2compat", "legacy")
 BINARIZE_IMPLS = ("adaptive", "otsu")
 METRIC_MODES = ("tiled", "global")
+TILE_ENGINES = ("lanes", "rows")
+DETAILED = ("fractal", "texture", "gradient", "edge", "contour")
+
+
+def stack_phi(phi1, phi2, phi3, phi4, phi5) -> torch.Tensor:
+    """The five (B, ht, wt) maps (phi1 unhalved) -> phi (B, ht, wt, 8): phi1
+    halved, then the interaction terms phi1*phi2, phi3^2, sqrt(phi4*phi5)."""
+    phi1 = phi1 / 2.0
+    return torch.stack([phi1, phi2, phi3, phi4, phi5, phi1 * phi2, phi3 ** 2,
+                        torch.sqrt(phi4 * phi5 + 1e-12)], dim=-1)
+
+
+def prepare_gray(features: torch.Tensor, grid_size: int = 8, downsample: int = 1):
+    """features (B, H, W, C) -> (the normalized float32 gray map (B, ht*t,
+    wt*t) the metrics run on, its tile t): channel mean over the whole
+    tiles, the `downsample` average pool (degraded per scale so t stays >= 4),
+    per-image min-max normalization."""
+    if not features.is_floating_point():
+        features = features.to(torch.float32) / 255.0
+    B, H, W, C = features.shape
+    tile = iops.tile_size_for(H, grid_size)
+    ht, wt = H // tile, W // tile
+    Hc, Wc = ht * tile, wt * tile
+
+    gray = torch.mean(features[:, :Hc, :Wc, :], dim=-1, dtype=torch.float32)
+    if downsample > 1:
+        if downsample & (downsample - 1):
+            raise ValueError(
+                f"morph_downsample must be a power of two, got {downsample}")
+        ds = downsample
+        while ds > 1 and tile // ds < 4:
+            ds //= 2
+        if ds > 1:
+            gray = iops.avg_pool(gray, ds)
+            tile //= ds
+    return iops.normalize01(gray), tile
 
 
 def compute_phi_tiles(
     features: torch.Tensor, grid_size: int = 8, canny_impl: str = "cv2compat",
     binarize_impl: str = "adaptive", contour_components: bool = True,
-    metric_mode: str = "tiled", downsample: int = 1,
+    metric_mode: str = "tiled", downsample: int = 1, tile_engine: str = "lanes",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """features (B, H, W, C) NHWC (or a (B, H, W, 3) image) ->
     (phi (B, ht, wt, 8), dict of the five raw metrics).  Always float32.
@@ -523,42 +596,29 @@ def compute_phi_tiles(
     'global' are the reference's options (module docstring).
     downsample: run the metric operators on a 2^k average-pooled gray map;
     the factor degrades per scale so tile/downsample stays >= 4
-    (reference `morphology.py:358-374`)."""
+    (reference `morphology.py:358-374`).
+    tile_engine: 'lanes' runs the tiled mode's metrics in one `phi_tiles`
+    call (the CUDA kernel on a CUDA tensor), 'rows' as the plain ops; the
+    gray map is prepared here either way, and 'global' mode ignores it.
+    The detailed maps are views of phi's first five channels."""
     for name, value, allowed in (("canny_impl", canny_impl, CANNY_IMPLS),
                                  ("binarize_impl", binarize_impl, BINARIZE_IMPLS),
-                                 ("metric_mode", metric_mode, METRIC_MODES)):
+                                 ("metric_mode", metric_mode, METRIC_MODES),
+                                 ("tile_engine", tile_engine, TILE_ENGINES)):
         if value not in allowed:
             raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
     with torch.no_grad():
-        if not features.is_floating_point():
-            features = features.to(torch.float32) / 255.0
-        B, H, W, C = features.shape
-        tile = iops.tile_size_for(H, grid_size)
-        ht, wt = H // tile, W // tile
-        Hc, Wc = ht * tile, wt * tile
+        gray, tile = prepare_gray(features, grid_size, downsample)
+        if metric_mode == "tiled" and tile_engine == "lanes":
+            from . import morphology_lanes
 
-        gray = torch.mean(features[:, :Hc, :Wc, :], dim=-1, dtype=torch.float32)
-        if downsample > 1:
-            if downsample & (downsample - 1):
-                raise ValueError(
-                    f"morph_downsample must be a power of two, got {downsample}")
-            ds = downsample
-            while ds > 1 and tile // ds < 4:
-                ds //= 2
-            if ds > 1:
-                gray = iops.avg_pool(gray, ds)
-                tile //= ds
-        gray = iops.normalize01(gray)
-
-        metrics = phi_metrics_tiled if metric_mode == "tiled" else phi_metrics_global
-        phi1, phi2, phi3, phi4, phi5 = metrics(gray, tile, canny_impl, binarize_impl,
-                                               contour_components)
-        phi1 = phi1 / 2.0
-        phi = torch.stack(
-            [phi1, phi2, phi3, phi4, phi5,
-             phi1 * phi2, phi3 ** 2, torch.sqrt(phi4 * phi5 + 1e-12)], dim=-1)
-        detailed = {"fractal": phi1, "texture": phi2, "gradient": phi3,
-                    "edge": phi4, "contour": phi5}
+            phi = morphology_lanes.phi_tiles(gray, tile, canny_impl, binarize_impl,
+                                             contour_components)
+        else:
+            metrics = phi_metrics_tiled if metric_mode == "tiled" else phi_metrics_global
+            phi = stack_phi(*metrics(gray, tile, canny_impl, binarize_impl,
+                                     contour_components))
+        detailed = {k: phi[..., i] for i, k in enumerate(DETAILED)}
     return phi, detailed
 
 
@@ -642,12 +702,14 @@ class MorphologicalComplexityAnalyzer(nn.Module):
 
     def __init__(self, grid_size: int = 8, canny_impl: str = "cv2compat",
                  binarize_impl: str = "adaptive", contour_components: bool = True,
-                 metric_mode: str = "tiled", downsample: int = 1):
+                 metric_mode: str = "tiled", downsample: int = 1, tile_engine: str = "lanes"):
         super().__init__()
+        if tile_engine not in TILE_ENGINES:
+            raise ValueError(f"tile_engine must be one of {TILE_ENGINES}, got {tile_engine!r}")
         self.grid_size = grid_size
         self.canny_impl, self.binarize_impl = canny_impl, binarize_impl
         self.contour_components, self.metric_mode = contour_components, metric_mode
-        self.downsample = downsample
+        self.downsample, self.tile_engine = downsample, tile_engine
         self.complexity_mlp = ComplexityMLP()
         self.register_buffer("feature_weights", torch.full((5,), 0.2))
 
@@ -655,7 +717,8 @@ class MorphologicalComplexityAnalyzer(nn.Module):
         return compute_phi_tiles(
             features, grid_size=self.grid_size, canny_impl=self.canny_impl,
             binarize_impl=self.binarize_impl, contour_components=self.contour_components,
-            metric_mode=self.metric_mode, downsample=self.downsample)[0]
+            metric_mode=self.metric_mode, downsample=self.downsample,
+            tile_engine=self.tile_engine)[0]
 
     def forward(self, features: torch.Tensor) -> torch.Tensor:
         phi = self._phi(features)

@@ -4,10 +4,12 @@ program as a `torch.export` artifact, in place of the reference's
 jax.export / StableHLO serialization.
 
 The spatial quantizer is the registered op `mcaq::spatial_quantize`
-(`ops/spatial_quant.py`), so the exported graph carries it as a node, three
-per forward, as the reference's StableHLO carries its quantizer: on CUDA the
-loaded program launches the hand-written kernel.  Importing this module
-registers the op, so a fresh process can load a saved artifact.
+(`ops/spatial_quant.py`) and the per-tile phi engine the op `mcaq::phi_tiles`
+(`core/morphology_lanes.py`, with the model's default 'lanes' engine), so
+the exported graph carries each as a node, three per forward, as the
+reference's StableHLO carries its quantizer: on CUDA the loaded program
+launches the hand-written kernels.  Importing this module registers both
+ops, so a fresh process can load a saved artifact.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
+from .core import morphology_lanes  # noqa: F401  (registers mcaq::phi_tiles)
 from .models.mcaq_yolo import MCAQYOLO
 from .models.yolo import decode_and_nms
 from .ops import spatial_quant  # noqa: F401  (registers mcaq::spatial_quantize)
@@ -90,7 +93,15 @@ def load_exported(path):
     return torch.export.load(str(path)).module()
 
 
+def _count_nodes(exported: torch.export.ExportedProgram, op) -> int:
+    return sum(1 for n in exported.graph.nodes if n.op == "call_function" and n.target is op)
+
+
 def count_quant_nodes(exported: torch.export.ExportedProgram) -> int:
     """How many `mcaq::spatial_quantize` nodes an exported graph holds."""
-    op = torch.ops.mcaq.spatial_quantize.default
-    return sum(1 for n in exported.graph.nodes if n.op == "call_function" and n.target is op)
+    return _count_nodes(exported, torch.ops.mcaq.spatial_quantize.default)
+
+
+def count_phi_nodes(exported: torch.export.ExportedProgram) -> int:
+    """How many `mcaq::phi_tiles` nodes an exported graph holds."""
+    return _count_nodes(exported, torch.ops.mcaq.phi_tiles.default)

@@ -89,8 +89,8 @@ class Predictor:
     out).  `data_parallel`: `predict_batch` over the ranks of the process
     group (module docstring; `self.mesh` is None at one rank, as in the
     reference); `morph_tile_engine` (default: the meta's
-    `morphology.tile_engine`) is accepted: the port computes the metrics
-    one way."""
+    `morphology.tile_engine`, else 'lanes') is the analyzer's tile engine
+    (`MCAQYOLO`)."""
 
     def __init__(self, model_path: str, num_classes: int = 80, variant: str = "yolov8n",
                  img_size: Optional[int] = None, conf_threshold: float = 0.25,

@@ -32,7 +32,7 @@ from ..core.bit_allocation import (
     LinearBitMapper,
     percentile_normalize,
 )
-from ..core.morphology import MorphologicalComplexityAnalyzer
+from ..core.morphology import TILE_ENGINES, MorphologicalComplexityAnalyzer
 from ..core.quantization import SpatialAdaptiveQuantization
 from ..device import DeviceLike, resolve_device
 from ..parallel.mesh import all_mean
@@ -45,8 +45,6 @@ from .yolo import (
     set_network_dtype,
     variant_channels,
 )
-
-TILE_ENGINES = ("lanes", "rows")
 
 
 class MCAQYOLO(nn.Module):
@@ -66,8 +64,9 @@ class MCAQYOLO(nn.Module):
     always the plain version.
     The model is built on `device` (default CUDA; raises without one) with
     a seeded random init, in eval mode.  `morph_tile_engine` is the
-    reference's choice of tile layout for its TPU morphology ('lanes' or
-    'rows'); both compute the same metrics, which the port computes one way."""
+    analyzer's tile engine: 'lanes' (the default) computes phi with the
+    hand-written CUDA kernel on the card, 'rows' with the plain PyTorch ops;
+    both run the plain ops on the CPU (`core/morphology.py`)."""
 
     data_group = None  # the process group of the data-parallel batch
 
@@ -98,7 +97,7 @@ class MCAQYOLO(nn.Module):
         self.neck = YOLOv8Neck(variant)
         self.head = DetectHead(num_classes, variant)
         self.complexity_analyzer = MorphologicalComplexityAnalyzer(
-            grid_size=grid_size, downsample=morph_downsample)
+            grid_size=grid_size, downsample=morph_downsample, tile_engine=morph_tile_engine)
         if bit_mapping == "constant":
             self.bit_mapper = ConstantBitMapper(constant_bits, min_bits, max_bits)
         elif bit_mapping == "linear":

@@ -36,13 +36,17 @@ def build_dir(root: Path) -> Path:
 
 
 BUILD_DIR = build_dir(Path(__file__).resolve().parents[2])
-KERNELS = ("spatial_quant",)  # CUDA sources, built by nvcc
+KERNELS = ("spatial_quant", "morph_tiles")  # CUDA sources, built by nvcc
 HOST_LIBRARIES = ("dataio",)  # C++ sources, built by g++
 
-# -fmad=false: no FMA contraction anywhere in the kernel, so the f32
-# arithmetic rounds after every operation exactly as the plain version's
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# each kernel's own flags go between the target and the link flags; both
+# kernels are held bitwise to plain versions that round after every f32
+# operation, so neither may contract a multiply and an add into an FMA
+NVCC_TARGET = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
+NVCC_LINK = ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNEL_FLAGS = {"spatial_quant": ("-fmad=false",), "morph_tiles": ("--fmad=false",)}
+# spatial_quant's flags, unchanged since its first build (its library hash)
+NVCC_FLAGS = NVCC_TARGET + KERNEL_FLAGS["spatial_quant"] + NVCC_LINK
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -67,10 +71,15 @@ def _cxx() -> str:
     return found
 
 
+def nvcc_flags(name: str) -> tuple:
+    """nvcc's flags for the kernel `name`."""
+    return NVCC_TARGET + KERNEL_FLAGS[name] + NVCC_LINK
+
+
 def _source_and_flags(name: str):
     if name in HOST_LIBRARIES:
         return CSRC / f"{name}.cpp", CXX_FLAGS
-    return CSRC / f"{name}.cu", NVCC_FLAGS
+    return CSRC / f"{name}.cu", nvcc_flags(name)
 
 
 def library_path(name: str) -> Path:

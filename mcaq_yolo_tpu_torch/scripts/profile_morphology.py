@@ -5,9 +5,10 @@
 number; this splits it into its operators — tile extraction, blur, Sobel,
 Otsu, Canny NMS, hysteresis, binarization, LBP entropy, fractal box count,
 Euler / contour — each timed alone (`utils.profiling.timed`), and counts
-the CUDA kernels each launches (`cuda_kernels`, under "cuda_kernels"): the
-stage is paced by the host's launches, so the count is what a fused
-kernel would remove.
+the CUDA kernels each launches (`cuda_kernels`, under "cuda_kernels"):
+`phi_full` is the whole per-tile pipeline as the 'rows' engine's plain
+ops, paced by the host's launches; `phi_lanes` is the same function as the
+fused kernel of the 'lanes' engine (`core/morphology_lanes.py`), one launch.
 
     python -m mcaq_yolo_tpu_torch.scripts.profile_morphology \\
         [--batch 128] [--hw 80] [--tile 8] [--out FILE]
@@ -28,6 +29,7 @@ import torch
 
 from ..core import image_ops as iops
 from ..core import morphology as tm
+from ..core import morphology_lanes as ml
 from ..device import resolve_device
 from ..utils.profiling import cuda_kernels, device_stamp, timed
 
@@ -76,6 +78,8 @@ def run(batch: int = 128, hw: int = 80, tile: int = 8, iters: int = 30,
         bench("contour_incl_euler", lambda b: tm.contour_complexity(b, True), binm)
         bench("phi_full", lambda g: tm.phi_metrics_tiled(g, tile, "cv2compat", "adaptive",
                                                          True), gray)
+        if gray.dtype == torch.float32:  # the kernel takes the float32 map
+            bench("phi_lanes", lambda g: ml.phi_tiles(g, tile), gray)
     return res
 
 

@@ -1,5 +1,5 @@
 """
-Device timing with CUDA events, and the spatial quantizer's bound.
+Device timing with CUDA events, and the kernels' bounds.
 
 Shared by `chip_smoke.py` and `ops/spatial_quant_ab.py`, so that both read
 a kernel the same way.  Every function here needs a CUDA device.
@@ -76,9 +76,14 @@ def quant_bytes(x, bit_map, mask) -> int:
     return n + (mask.numel() * 4 if mask is not None else 0)
 
 
+def bound_ms(n_bytes: int, n_ops: int):
+    """(the least time in ms the card could take to move `n_bytes` and do
+    `n_ops` f32 operations, "bytes" or "operations": whichever bounds it)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def quant_bound_ms(x, bit_map, mask) -> float:
     """The least time the card could take for one quantize: the larger of
     its bytes over the HBM rate and its f32 operations over the f32 rate."""
-    t_bytes = quant_bytes(x, bit_map, mask) / HBM_BYTES_PER_S
-    t_ops = x.numel() * QUANT_OPS_PER_ELEMENT / FP32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3
+    return bound_ms(quant_bytes(x, bit_map, mask), x.numel() * QUANT_OPS_PER_ELEMENT)[0]

@@ -32,7 +32,15 @@ quantizer's range reduced over them is the whole batch's and the kernel is
 bitwise its plain version on it; sync-BN equals one rank's.  Every
 morphology option agrees with its CPU run, and the profiling layer's
 `component_breakdown` times the card with `with_mcaq` bitwise equal to
-the forward's features; its kernel counter is exact."""
+the forward's features; its kernel counter is exact.
+
+The phi kernel (`csrc/morph_tiles.cu`, `core/morphology_lanes.py`) equals
+its plain version bitwise at every power-of-two tile from 1 to 128 and in
+all 8 option combinations, on random maps and on maps with constant, zero
+and exactly tied tiles; a tile's phi does not depend on the batch size or
+on its position in the batch; the deployed forward launches it once per
+scale and the exported program holds it as 3 nodes; the 'rows' engine
+launches no phi kernel."""
 
 import numpy as np
 import pytest
@@ -538,3 +546,111 @@ def test_sync_batchnorm_on_the_card(two_ranks_on_the_card, name):
     for t in two:
         for k in ("w_grad", "b_grad", "mean", "var"):
             np.testing.assert_allclose(t[k], ref[k], rtol=1e-5, atol=1e-5 * np.abs(ref[k]).max())
+
+
+# ---------------------------------------------------------------------------
+# The phi kernel (csrc/morph_tiles.cu)
+# ---------------------------------------------------------------------------
+
+PHI_OPTIONS = [(c, b, k) for c in ("cv2compat", "legacy") for b in ("adaptive", "otsu")
+               for k in (True, False)]
+
+
+def _gray_map(device, B, ht, wt, tile, seed):
+    """A normalized gray map whose first tile row is constant, whose first
+    tile column is zero, and whose last tile is a ramp with exactly tied
+    gradients; random elsewhere."""
+    from mcaq_yolo_tpu_torch.core import image_ops as iops
+
+    rng = np.random.default_rng(seed)
+    g = rng.random((B, ht * tile, wt * tile)).astype(np.float32)
+    g[:, :tile, :] = 0.375
+    g[:, :, :tile] = 0.0
+    y, x = np.mgrid[:tile, :tile]
+    g[:, -tile:, -tile:] = ((x + y) % 8) / 8.0
+    return iops.normalize01(torch.from_numpy(g).to(device)).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [1, 2, 4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("canny_impl,binarize_impl,contour_components", PHI_OPTIONS)
+def test_phi_kernel_bitwise_equals_plain(cuda, tile, canny_impl, binarize_impl,
+                                         contour_components):
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+
+    B, ht, wt = (2, 2, 3) if tile >= 64 else (3, 5, 4)
+    gray = _gray_map(cuda, B, ht, wt, tile, seed=tile)
+    before = ml.phi_tiles.launches
+    out = ml.phi_tiles(gray, tile, canny_impl, binarize_impl, contour_components)
+    torch.cuda.synchronize()
+    assert ml.phi_tiles.launches == before + 1
+    ref = ml.phi_tiles_torch(gray, tile, canny_impl, binarize_impl, contour_components)
+    assert out.shape == (B, ht, wt, 8) and bool(torch.isfinite(out).all())
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_phi_kernel_does_not_depend_on_the_batch(cuda):
+    """One image alone, in a batch of 5 and at another position give the
+    same phi, bitwise."""
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+
+    gray = _gray_map(cuda, 5, 10, 10, 4, seed=9)
+    full = ml.phi_tiles(gray, 4)
+    perm = torch.tensor([3, 0, 4, 1, 2], device=cuda)
+    shuffled = ml.phi_tiles(gray[perm].contiguous(), 4)
+    for i in range(5):
+        alone = ml.phi_tiles(gray[i:i + 1].contiguous(), 4)
+        assert torch.equal(alone[0], full[i])
+    assert torch.equal(shuffled, full[perm])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["lanes", "rows"])
+def test_forward_launches_the_phi_kernel_once_per_scale(cuda, engine):
+    """The deployed forward: 3 phi launches with 'lanes', none with 'rows',
+    and the same raw maps, bitwise."""
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+
+    x = torch.from_numpy(np.random.default_rng(7).integers(0, 256, (2, 128, 128, 3),
+                                                           dtype=np.uint8)).to(cuda)
+    model = MCAQYOLO(num_classes=4, morph_downsample=2, morph_tile_engine=engine,
+                     device=cuda, seed=3)
+    other = MCAQYOLO(num_classes=4, morph_downsample=2, device=cuda, seed=3,
+                     morph_tile_engine="rows" if engine == "lanes" else "lanes")
+    with torch.no_grad():
+        before = ml.phi_tiles.launches
+        raw, _ = model(x)
+        torch.cuda.synchronize()
+        launches = ml.phi_tiles.launches - before
+        raw_other, _ = other(x)
+    assert launches == (3 if engine == "lanes" else 0)
+    for a, b in zip(raw, raw_other):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_exported_program_holds_three_phi_nodes(cuda, tmp_path):
+    """The exported serving program (64 px, bs 2) holds 3 phi nodes beside
+    its 3 quantize nodes; loaded, one call launches the phi kernel three
+    times and equals the eager program bitwise."""
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+    from mcaq_yolo_tpu_torch.export import (count_phi_nodes, count_quant_nodes,
+                                            load_exported, make_inference_fn, save_exported)
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.rand((2, 64, 64, 3), generator=g, device=cuda)
+    model = MCAQYOLO(num_classes=4, morph_downsample=2, device=cuda, seed=1)
+    paths = save_exported(model, tmp_path, batch_size=2, img_size=64)
+    exported = torch.export.load(paths["serialized"])
+    assert count_phi_nodes(exported) == 3 and count_quant_nodes(exported) == 3
+    program = load_exported(paths["serialized"])
+    with torch.no_grad():
+        ref = make_inference_fn(model)(x)
+        before = ml.phi_tiles.launches
+        out = program(x)
+        torch.cuda.synchronize()
+    assert ml.phi_tiles.launches - before == 3
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))

@@ -36,10 +36,11 @@ _PROBE = textwrap.dedent("""
                  "scripts.downsample_fidelity", "scripts.pretopk_equivalence",
                  "scripts.backend_agreement", "scripts.profile_morphology",  # diagnostics
                  "scripts.roofline", "scripts.perf_sweep_diag", "scripts.train_breakdown",
-                 "utils.profiling"):
+                 "utils.profiling", "core.morphology_lanes"):
         assert "mcaq_yolo_tpu_torch." + name in names, name
     import torch
     assert hasattr(torch.ops.mcaq, "spatial_quantize")  # registered at import
+    assert hasattr(torch.ops.mcaq, "phi_tiles")
     from mcaq_yolo_tpu_torch.ops import build
     assert not build._libs  # nothing was built or loaded
 

@@ -106,13 +106,12 @@ def test_image_ops_match_jax(name):
 
 def test_phi_signature_matches_jax():
     """The positional order is JAX's, so a positional caller lands on the
-    same option in either package (JAX's last, `tile_engine`, is the
-    reference's choice of TPU layout, which the port does not take)."""
+    same option in either package, the last being `tile_engine` in both."""
     j = list(inspect.signature(jmorph.compute_phi_tiles).parameters)
     t = list(inspect.signature(tmorph.compute_phi_tiles).parameters)
-    assert t == j[:-1] and j[-1] == "tile_engine"
+    assert t == j and j[-1] == "tile_engine"
     ja = [f for f in jmorph.MorphologicalComplexityAnalyzer.__dataclass_fields__
-          if f not in ("parent", "name", "tile_engine")]
+          if f not in ("parent", "name")]
     ta = list(inspect.signature(tmorph.MorphologicalComplexityAnalyzer).parameters)
     assert ta == ja
 

@@ -175,7 +175,7 @@ def test_profile_morphology_keys():
     res = profile_morphology.run(batch=2, hw=16, tile=4, iters=1, device="cpu")
     keys = ("pack_tiles", "gaussian_blur5", "sobel", "otsu", "canny_nms", "hysteresis_x8",
             "canny_full", "adaptive_binarize", "lbp_entropy", "fractal", "euler",
-            "contour_incl_euler", "phi_full")
+            "contour_incl_euler", "phi_full", "phi_lanes")
     assert all(res[k] >= 0 for k in keys)
     assert res["cuda_kernels"] == {k: None for k in keys}  # no card: not counted
     assert res["config"]["platform"] == "cpu"
