@@ -25,7 +25,10 @@ Phases (any failure exits non-zero and prints no result):
      tiles) — in all 8 option combinations: bitwise against the plain
      version on the card; against the CPU's plain version within 1e-5 on
      all but 0.1% of the tiles, each such tile traced to its edge map or
-     mask; one launch counted per call.  Every later path zeroes both
+     mask; one launch counted per call.  A letterboxed 2048-px image (tile
+     256) in every option too: bitwise but for a tile whose Otsu bin the
+     plain version's rounded float sums moved (`otsu_bins_differ`), each
+     such tile counted; one launch a call.  Every later path zeroes both
      kernels' launch counts just before it runs and reads them just after
      (one phi launch per scale of every forward that runs the analyzer);
   3. the deployed program: a seeded random MCAQ-YOLOv8n (nc=80, MLP bit
@@ -48,6 +51,9 @@ Phases (any failure exits non-zero and prints no result):
      stage's share of a forward; the phi kernel per scale at bs 32 and 256
      (device ms, plain ms, bound) and, at bs 32, the CUDA kernels of one
      scale's phi with its gray preparation (at most 16) with each engine;
+     the same timing for P3 at downsample 1 (tile 8, bs 32) and for Eq.(8)
+     scoring's maps (bs 8 letterboxed images: tile 64 at 640 px, 128 at
+     1280 px, 256 at 2048 px);
   5. training: a seeded float32 YOLOv8n teacher written as a flax msgpack;
      `Trainer` (bf16 convolutions with float32 weights, KD on) over three
      one-batch epochs at 640 px, nc 80, bs 16, on seeded synthetic batches
@@ -361,8 +367,8 @@ def phi_maps(device):
     and last tile a ramp with exactly tied gradients; the gray maps of a
     random YOLOv8n's P3 / P4 / P5 features at 640 px with downsample 1 and
     2 (tiles 8, 4, 4 and 4, 4, 4) and of its P5 at 64 and 32 px (tiles 2,
-    1); letterboxed images as Eq.(8) scoring sees them at 128, 256, 640 and
-    1280 px (tiles 16, 32, 64, 128)."""
+    1); letterboxed images as Eq.(8) scoring sees them at 128, 256, 640,
+    1280 and 2048 px (tiles 16, 32, 64, 128, 256)."""
     import numpy as np
     import torch
 
@@ -395,7 +401,7 @@ def phi_maps(device):
                 for ds in ((1, 2) if size == IMG else (1,)):
                     gray, tile = tm.prepare_gray(f, 8, ds)
                     maps.append((f"P{i + 3}_{size}px_ds{ds}", tile, gray.contiguous()))
-        for size, n in ((128, 4), (256, 4), (IMG, 2), (1280, 1)):
+        for size, n in ((128, 4), (256, 4), (IMG, 2), (1280, 1), (2048, 1)):
             x = torch.from_numpy(np.stack([letterbox(im, size)[0] for im in images[:n]]))
             gray, tile = tm.prepare_gray(x.to(device), 8, 1)
             maps.append((f"image_{size}px", tile, gray.contiguous()))
@@ -406,30 +412,38 @@ def _phi_cpu_causes(gray, tile, canny_impl, binarize_impl, idx):
     """For the tiles `idx` whose phi on the card is beyond PHI_CPU_ATOL of
     the CPU's: how many have another edge map on the two devices (NMS: the
     direction bin from atan2, whose CPU and CUDA libm differ, or a tie), how
-    many only another mask, and how many neither."""
+    many another Otsu bin in the kernel than in the plain version on either
+    device (tiles above 128, `otsu_bins_differ`), how many only another
+    mask, and how many none of these."""
     from mcaq_yolo_tpu_torch.core import morphology as tm
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
 
     tiles = tm.extract_tiles(gray, tile)[0][idx]
     edge = tm.canny_legacy if canny_impl == "legacy" else tm.canny_cv2compat
     binz = tm.otsu_binarize if binarize_impl == "otsu" else tm.adaptive_binarize
     e = (edge(tiles).cpu() != edge(tiles.cpu())).flatten(1).any(1)
-    m = (binz(tiles).cpu() != binz(tiles.cpu())).flatten(1).any(1)
-    return {"edge_map": int(e.sum()), "mask_only": int((m & ~e).sum()),
-            "unexplained": int((~e & ~m).sum())}
+    o = (ml.otsu_bins_differ(tiles, canny_impl, binarize_impl).cpu()
+         | ml.otsu_bins_differ(tiles.cpu(), canny_impl, binarize_impl)) & ~e
+    m = (binz(tiles).cpu() != binz(tiles.cpu())).flatten(1).any(1) & ~e & ~o
+    return {"edge_map": int(e.sum()), "otsu_rounding": int(o.sum()),
+            "mask_only": int(m.sum()), "unexplained": int((~e & ~o & ~m).sum())}
 
 
 def phase_phi_vs_plain(device) -> float:
     """The phi kernel against its plain version on the same maps, in every
-    option: bitwise against the plain version on the card; against the
+    option: bitwise against the plain version on the card, but for a tile
+    above 128 whose Otsu bin the plain version's rounded float sums moved
+    (`otsu_bins_differ`: the 2048-px image's tiles of 256); against the
     plain version on the CPU, phi within PHI_CPU_ATOL on all but
     PHI_CPU_TILE_SHARE of the tiles, each such tile traced.  Returns the
     largest difference from the plain version on the card."""
     import torch
 
+    from mcaq_yolo_tpu_torch.core import morphology as tm
     from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
 
-    worst, n_cases, n_tiles, far_tiles = 0.0, 0, 0, 0
-    causes = {"edge_map": 0, "mask_only": 0, "unexplained": 0}
+    worst, n_cases, n_tiles, far_tiles, otsu_tiles = 0.0, 0, 0, 0, 0
+    causes = {"edge_map": 0, "otsu_rounding": 0, "mask_only": 0, "unexplained": 0}
     cuda_bitwise = cpu_bitwise = 0
     for name, tile, gray in phi_maps(device):
         cpu_gray = gray.cpu()
@@ -441,7 +455,10 @@ def phase_phi_vs_plain(device) -> float:
             check(ml.phi_tiles.launches == before + 1, "one phi_tiles call must count one launch")
             c = ml.phi_tiles_torch(cpu_gray, tile, *opt)
             kc = k.cpu()
-            mism = int((k.view(torch.int32) != p.view(torch.int32)).sum())
+            differ = (k.view(torch.int32) != p.view(torch.int32)).reshape(-1, 8).any(1)
+            rounding = (ml.otsu_bins_differ(tm.extract_tiles(gray, tile)[0], *opt[:2])
+                        if differ.any() else torch.zeros_like(differ))
+            mism = int((differ & ~rounding).sum())
             err = float((k - p).abs().max())
             finite = bool(torch.isfinite(k).all())
             far = ((kc - c).abs() > PHI_CPU_ATOL).reshape(-1, 8).any(1)
@@ -450,7 +467,8 @@ def phase_phi_vs_plain(device) -> float:
                    "shape": list(gray.shape), "options": list(opt), "tiles": far.numel(),
                    "cuda_mismatches": mism, "cuda_max_abs_err": err,
                    "cpu_mismatches": cpu_mism, "cpu_max_abs_err": float((kc - c).abs().max()),
-                   "cpu_tiles_beyond_atol": int(far.sum()), "finite": finite}
+                   "cpu_tiles_beyond_atol": int(far.sum()), "finite": finite,
+                   "otsu_rounding_tiles": int((differ & rounding).sum())}
             if far.any():
                 row["cpu_causes"] = _phi_cpu_causes(gray, tile, opt[0], opt[1],
                                                     far.nonzero()[:, 0].to(device))
@@ -458,16 +476,18 @@ def phase_phi_vs_plain(device) -> float:
                     causes[key] += v
             emit(row)
             check(mism == 0 and finite, f"phi_tiles differs from its plain version on the "
-                                        f"card: {name} tile {tile} {opt}: {mism} values")
+                                        f"card: {name} tile {tile} {opt}: {mism} tiles")
             worst = max(worst, err)
             n_cases += 1
             n_tiles += far.numel()
             far_tiles += int(far.sum())
-            cuda_bitwise += 1
+            otsu_tiles += row["otsu_rounding_tiles"]
+            cuda_bitwise += not differ.any()
             cpu_bitwise += cpu_mism == 0
     share = far_tiles / n_tiles
     emit({"phase": "phi_vs_plain", "cases": n_cases, "tiles": n_tiles,
           "bitwise_vs_cuda_plain": f"{cuda_bitwise}/{n_cases}",
+          "cuda_otsu_rounding_tiles": otsu_tiles,
           "bitwise_vs_cpu_plain": f"{cpu_bitwise}/{n_cases}",
           "cpu_tiles_beyond_atol": far_tiles, "cpu_share_beyond_atol": share,
           "cpu_causes": causes, "cpu_atol": PHI_CPU_ATOL, "cpu_tile_share": PHI_CPU_TILE_SHARE})
@@ -772,19 +792,36 @@ def phase_timings(pred, device, dtype):
 
 def phi_timings(model, x32, rng, device, dtype):
     """The phi kernel at each scale of the deployed model (downsample 2: tile
-    4 on 40 x 40, 40 x 40 and 20 x 20 gray maps) at bs 32 and 256: the
-    device time of the kernel (8 launches back to back) and of its plain
-    version (one call), queued behind a device sleep, median of 21, and the
-    bound; at bs 32, the CUDA kernels of one scale's phi (gray preparation
-    included) with each engine, counted from CUDA graph captures."""
+    4 on 40 x 40, 40 x 40 and 20 x 20 gray maps) at bs 32 and 256 (cell
+    'serving'), at P3 with downsample 1 (tile 8 on 80 x 80, bs 32, 'p3_ds1')
+    and on Eq.(8) scoring's maps of 8 letterboxed images ('scoring': tile 64
+    at 640 px, 128 at 1280 px, 256 at 2048 px): the device time of the
+    kernel (8 launches back to back) and of its plain version (one call),
+    queued behind a device sleep, median of 21, and the bound; at bs 32, the CUDA kernels of one
+    serving scale's phi (gray preparation included) with each engine,
+    counted from CUDA graph captures."""
     import numpy as np
     import torch
 
     from mcaq_yolo_tpu_torch.core import morphology as tm
     from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+    from mcaq_yolo_tpu_torch.data.dataset import letterbox
     from mcaq_yolo_tpu_torch.models.yolo import images_to_nchw
     from mcaq_yolo_tpu_torch.utils import profiling
     from mcaq_yolo_tpu_torch.utils.cuda_timing import bound_ms, cuda_ms
+
+    def timed_row(cell, name, bs, gray, tile):
+        n_bytes, n_ops = ml.phi_tiles_bytes(gray, tile), ml.phi_tiles_ops(gray.numel())
+        row = {"phase": "phi_timing", "kernel": "phi_tiles", "cell": cell, "scale": name,
+               "batch": bs, "gray": list(gray.shape), "tile": tile, "bytes": n_bytes,
+               "ops": n_ops,
+               "ms": cuda_ms(lambda k: ml.phi_tiles(gray, tile), inner=8, device_only=True),
+               "plain_ms": cuda_ms(lambda k: ml.phi_tiles_torch(gray, tile), device_only=True),
+               "ms_host_paced": cuda_ms(lambda k: ml.phi_tiles(gray, tile), inner=8),
+               "library_ms": None}
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        return row
 
     rows = []
     grid, ds = model.grid_size, model.morph_downsample
@@ -796,17 +833,7 @@ def phi_timings(model, x32, rng, device, dtype):
             for (name, *_), f in zip(SCALES, feats):
                 xf = f.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
                 gray, tile = tm.prepare_gray(xf, grid, ds)
-                n_bytes, n_ops = ml.phi_tiles_bytes(gray, tile), ml.phi_tiles_ops(gray.numel())
-                row = {"phase": "phi_timing", "kernel": "phi_tiles", "scale": name, "batch": bs,
-                       "gray": list(gray.shape), "tile": tile, "bytes": n_bytes, "ops": n_ops,
-                       "ms": cuda_ms(lambda k: ml.phi_tiles(gray, tile), inner=8,
-                                     device_only=True),
-                       "plain_ms": cuda_ms(lambda k: ml.phi_tiles_torch(gray, tile),
-                                           device_only=True),
-                       "ms_host_paced": cuda_ms(lambda k: ml.phi_tiles(gray, tile), inner=8),
-                       "library_ms": None}
-                row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops)
-                row["bound_share"] = row["bound_ms"] / row["ms"]
+                row = timed_row("serving", name, bs, gray, tile)
                 if bs == 32:
                     n0 = ml.phi_tiles.launches
                     row["cuda_kernels"] = {
@@ -826,7 +853,19 @@ def phi_timings(model, x32, rng, device, dtype):
                           "kernels, one of them the phi kernel)")
                 rows.append(row)
                 emit(row)
+            if bs == 32:
+                xf = feats[0].contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+                gray, tile = tm.prepare_gray(xf, grid, 1)
+                rows.append(timed_row("p3_ds1", "P3", bs, gray, tile))
+                emit(rows[-1])
         del xb, feats
+    images = serving_images(seed=21, count=1)
+    for size in (IMG, 1280, 2048):
+        x = torch.from_numpy(np.stack([letterbox(im, size)[0] for im in images]))
+        gray, tile = tm.prepare_gray(x.to(device), 8, 1)
+        rows.append(timed_row("scoring", f"image_{size}px", len(images), gray.contiguous(),
+                              tile))
+        emit(rows[-1])
     return rows
 
 
@@ -2510,7 +2549,7 @@ def phi_kernel_entry(phi_rows, worst: float) -> dict:
     launches on every path (the deployed one as `launches`)."""
     from mcaq_yolo_tpu_torch.utils.cuda_timing import bound_ms
 
-    bs32 = [r for r in phi_rows if r["batch"] == 32]
+    bs32 = [r for r in phi_rows if r["cell"] == "serving" and r["batch"] == 32]
     bound, by = bound_ms(sum(r["bytes"] for r in bs32), sum(r["ops"] for r in bs32))
     check(PHI_LAUNCHES.get("deployed", 0) > 0, "the main path never launched the phi kernel")
     return {"name": "phi_tiles", "route": "cuda", "source": PHI_SOURCE,

@@ -216,17 +216,23 @@ def _hysteresis(strong: torch.Tensor, weak: torch.Tensor, iters: int) -> torch.T
     return edge
 
 
-def canny_legacy(tiles: torch.Tensor) -> torch.Tensor:
-    """The legacy per-tile surrogate (reference `morphology_lanes.py:399-414`):
-    zero-border blur and Sobel, L2 magnitude, Otsu on the tile's min-max
-    normalized NMS (high = Otsu, low = Otsu / 2), 2 hysteresis passes."""
+def legacy_nms_n(tiles: torch.Tensor) -> torch.Tensor:
+    """`canny_legacy`'s Otsu input: zero-border blur and Sobel, L2 magnitude,
+    NMS, min-max normalized per tile."""
     b = _sep_filter(tiles, _gaussian_taps(5, 1.0), "zero")
     gx, gy = sobel(b, mode="zero")
     mag = torch.sqrt(gx ** 2 + gy ** 2 + 1e-12)
     nms = _canny_nms(mag, gx, gy)
     mn = nms.amin(dim=(1, 2), keepdim=True)
     mx = nms.amax(dim=(1, 2), keepdim=True)
-    nms_n = (nms - mn) / (mx - mn + 1e-8)
+    return (nms - mn) / (mx - mn + 1e-8)
+
+
+def canny_legacy(tiles: torch.Tensor) -> torch.Tensor:
+    """The legacy per-tile surrogate (reference `morphology_lanes.py:399-414`):
+    zero-border blur and Sobel, L2 magnitude, Otsu on the tile's min-max
+    normalized NMS (high = Otsu, low = Otsu / 2), 2 hysteresis passes."""
+    nms_n = legacy_nms_n(tiles)
     thr = otsu_threshold(nms_n)
     return _hysteresis((nms_n > thr).to(tiles.dtype), nms_n > 0.5 * thr, 2)
 

@@ -84,7 +84,7 @@ def _baseline_fn(lib_path: Path):
     return run
 
 
-def _sass(lib: Path, out_dir: Path, tag: str) -> dict:
+def sass_counts(lib: Path, out_dir: Path, tag: str) -> dict:
     """Dump the library's SASS; return the instruction count per kernel."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     r = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120)
@@ -97,7 +97,7 @@ def _sass(lib: Path, out_dir: Path, tag: str) -> dict:
         if m:
             name = m.group(1)
             counts[name] = 0
-        elif name and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
             counts[name] += 1
     return counts
 
@@ -151,7 +151,7 @@ def main(argv=None) -> int:
         libs["baseline"] = _build_baseline(args.baseline, args.out)
         kernels["baseline"] = _baseline_fn(libs["baseline"])
     for tag, lib in libs.items():
-        _emit({"sass": tag, "library": lib.name, "instructions": _sass(lib, args.out, tag)})
+        _emit({"sass": tag, "library": lib.name, "instructions": sass_counts(lib, args.out, tag)})
     _emit({"ptxas_committed": [ln.strip() for ln in build.build_log("spatial_quant").splitlines()
                                if "registers" in ln or "spill" in ln]})
 

@@ -37,10 +37,13 @@ the forward's features; its kernel counter is exact.
 The phi kernel (`csrc/morph_tiles.cu`, `core/morphology_lanes.py`) equals
 its plain version bitwise at every power-of-two tile from 1 to 128 and in
 all 8 option combinations, on random maps and on maps with constant, zero
-and exactly tied tiles; a tile's phi does not depend on the batch size or
-on its position in the batch; the deployed forward launches it once per
+and exactly tied tiles, and on ragged tails (1, 31 and 33 tiles, a batch
+of 1, more 128 x 128 tiles than blocks); a tile's phi does not depend on
+the batch size or on its position in the batch, on the warp path (tiles up
+to 8 x 8) and on the block path; the deployed forward launches it once per
 scale and the exported program holds it as 3 nodes; the 'rows' engine
-launches no phi kernel."""
+launches no phi kernel; tiles of 256 to 1024 launch it too, bitwise but for
+a tile whose Otsu bin the plain version's rounded float sums moved."""
 
 import numpy as np
 import pytest
@@ -603,6 +606,76 @@ def test_phi_kernel_does_not_depend_on_the_batch(cuda):
         alone = ml.phi_tiles(gray[i:i + 1].contiguous(), 4)
         assert torch.equal(alone[0], full[i])
     assert torch.equal(shuffled, full[perm])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile,shape", [(4, (1, 1, 1)), (4, (1, 1, 31)), (4, (1, 1, 33)),
+                                        (1, (1, 3, 11)), (2, (3, 1, 9)), (8, (1, 1, 5)),
+                                        (16, (1, 1, 3)), (128, (1, 17, 16))])
+@pytest.mark.parametrize("canny_impl,binarize_impl,contour_components",
+                         [PHI_OPTIONS[0], PHI_OPTIONS[-1]])
+def test_phi_kernel_bitwise_on_ragged_tails(cuda, tile, shape, canny_impl, binarize_impl,
+                                            contour_components):
+    """Tile counts that leave a warp or a block partly filled, a batch of 1,
+    and 272 tiles of 128 x 128 (more than the 264 blocks that stride over
+    them): bitwise equal to the plain version, one launch."""
+    from mcaq_yolo_tpu_torch.core import image_ops as iops
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+
+    B, ht, wt = shape
+    g = np.random.default_rng(tile * 100 + wt).random((B, ht * tile, wt * tile))
+    gray = iops.normalize01(torch.from_numpy(g.astype(np.float32)).to(cuda)).contiguous()
+    before = ml.phi_tiles.launches
+    out = ml.phi_tiles(gray, tile, canny_impl, binarize_impl, contour_components)
+    torch.cuda.synchronize()
+    assert ml.phi_tiles.launches == before + 1
+    ref = ml.phi_tiles_torch(gray, tile, canny_impl, binarize_impl, contour_components)
+    assert out.shape == (B, ht, wt, 8)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [16, 128, 256])
+def test_phi_block_path_does_not_depend_on_the_batch(cuda, tile):
+    """The block path (tiles from 16 x 16): one image alone, in a batch of 3
+    and at another position give the same phi, bitwise."""
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+
+    gray = _gray_map(cuda, 3, 2, 3, tile, seed=tile + 1)
+    full = ml.phi_tiles(gray, tile)
+    perm = torch.tensor([2, 0, 1], device=cuda)
+    shuffled = ml.phi_tiles(gray[perm].contiguous(), tile)
+    for i in range(3):
+        alone = ml.phi_tiles(gray[i:i + 1].contiguous(), tile)
+        assert torch.equal(alone[0], full[i])
+    assert torch.equal(shuffled, full[perm])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile,shape,options", [(256, (1, 2, 2), o) for o in PHI_OPTIONS]
+                         + [(512, (1, 2, 1), PHI_OPTIONS[0]), (1024, (1, 1, 1), PHI_OPTIONS[0])])
+def test_phi_kernel_above_128_equals_plain_but_for_otsu_rounding(cuda, tile, shape, options):
+    """ROADMAP C.5: tiles above 128 (Eq.(8) scoring from 2048 px at grid 8)
+    launch the kernel once.  Each tile's phi equals the plain version's
+    bitwise unless the plain version's float Otsu sums, which round from 256
+    x 256, picked another bin than the kernel's exact scan
+    (`otsu_bins_differ`).  Above 1024 the kernel refuses."""
+    from mcaq_yolo_tpu_torch.core import morphology as tm
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+
+    B, ht, wt = shape
+    gray = _gray_map(cuda, B, ht, wt, tile, seed=tile)
+    before = ml.phi_tiles.launches
+    out = ml.phi_tiles(gray, tile, *options)
+    torch.cuda.synchronize()
+    assert ml.phi_tiles.launches == before + 1
+    ref = ml.phi_tiles_torch(gray, tile, *options)
+    assert out.shape == (B, ht, wt, 8) and bool(torch.isfinite(out).all())
+    same = (out.view(torch.int32) == ref.view(torch.int32)).reshape(-1, 8).all(1)
+    rounding = ml.otsu_bins_differ(tm.extract_tiles(gray, tile)[0], *options[:2])
+    assert bool((same | rounding).all())
+    with pytest.raises(ValueError, match="power of two"):
+        ml.kernel_args(torch.zeros((1, 2048, 2048), device=cuda), 2048, *options)
 
 
 @pytest.mark.gpu

@@ -82,6 +82,20 @@ def test_phi_metrics_tiled_matches_jax_lanes_at_every_tile(tile):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-5, rtol=0)
 
 
+def test_tile_256_matches_jax_lanes():
+    """ROADMAP C.5: tile 256 (grid 2 on 512 px; `tile_size_for` gives it from
+    2048 px at grid 8), which the CPU op takes as it takes any power of two,
+    agrees with JAX's lanes engine, which takes any tile."""
+    gray = np.random.default_rng(256).random((1, 512, 512)).astype(np.float32)
+    gray = (gray - gray.min()) / (gray.max() - gray.min())
+    ref = jlanes.phi_metrics_tiled(jnp.asarray(gray), 256, "cv2compat", "adaptive", True)
+    out = tlanes.phi_metrics_tiled(torch.from_numpy(gray), 256)
+    for a, r in zip(out, ref):
+        assert a.shape == (1, 2, 2)
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-5, rtol=0)
+    assert tlanes.phi_tiles.launches == 0
+
+
 def test_op_on_the_cpu_is_the_plain_version():
     gray = tiops.normalize01(torch.from_numpy(
         np.random.default_rng(3).random((2, 16, 24)).astype(np.float32)))
@@ -153,23 +167,94 @@ def test_checkpoint_meta_engine_reaches_the_analyzer(tmp_path):
 
 @pytest.mark.parametrize("tile", [1, 2, 4, 8, 16, 32, 64, 128])
 def test_launch_geometry(tile):
-    """Groups of whole tiles, 256 pixel slots (one tile from 16 x 16 up);
-    planes in shared memory up to tile 64, in a global scratch at 128."""
+    """Tiles up to 8 x 8: whole tiles per warp (32 / tile^2, one 8 x 8), 4
+    warps a block, no shared memory; from 16 x 16 one tile per block of 256
+    threads, its planes in shared memory up to tile 64, in a global scratch
+    at 128."""
     n_tiles = 1000
     geo = tlanes.launch_geometry(n_tiles, tile)
     n = tile * tile
-    assert geo.tiles_per_group * n == max(tlanes.SLOTS, n)
-    assert geo.groups == -(-n_tiles // geo.tiles_per_group)
-    assert geo.ws_bytes == tlanes.PLANE_BYTES_PER_PIXEL * geo.tiles_per_group * n
-    assert geo.smem <= tlanes.MAX_SMEM
-    assert geo.ws_global == (tile == 128)
-    if geo.ws_global:
-        assert geo.grid == min(geo.groups, tlanes.GLOBAL_BLOCKS)
-        assert geo.scratch_bytes == geo.grid * geo.ws_bytes
-        assert geo.smem == geo.tiles_per_group * 26 * 4 + 256 * 4
+    assert geo.warp_path == (tile <= 8)
+    if geo.warp_path:
+        assert geo.tiles_per_warp == max(1, 32 // n) and geo.threads == 128
+        assert geo.tiles_per_block == 4 * geo.tiles_per_warp
+        assert geo.grid == -(-n_tiles // geo.tiles_per_block)
+        assert (geo.ws_global, geo.ws_bytes, geo.smem, geo.scratch_bytes) == (False, 0, 0, 0)
     else:
-        assert geo.grid == geo.groups and geo.scratch_bytes == 0
-        assert geo.smem == geo.tiles_per_group * 26 * 4 + 256 * 4 + geo.ws_bytes
+        assert (geo.tiles_per_warp, geo.tiles_per_block, geo.threads) == (0, 1, 256)
+        assert geo.ws_bytes == tlanes.PLANE_BYTES_PER_PIXEL * n
+        assert geo.smem <= tlanes.MAX_SMEM
+        assert geo.ws_global == (tile == 128)
+        if geo.ws_global:
+            assert geo.grid == min(n_tiles, tlanes.GLOBAL_BLOCKS)
+            assert geo.scratch_bytes == geo.grid * geo.ws_bytes
+            assert geo.smem == tlanes.HEADER_BYTES
+        else:
+            assert geo.grid == n_tiles and geo.scratch_bytes == 0
+            assert geo.smem == tlanes.HEADER_BYTES + geo.ws_bytes
+
+
+@pytest.mark.parametrize("tile,n_tiles", [(4, 1), (4, 31), (4, 33), (1, 129), (2, 40), (8, 5)])
+def test_warp_path_covers_every_tile_once(tile, n_tiles):
+    """Structural, from `launch_geometry` alone: a warp's tiles fill its 32
+    lanes (two pixels a lane at 8 x 8), a block is 4 warps, and the grid is
+    the fewest blocks that hold every tile of a ragged tail, so the last
+    block is partly filled and no block is empty.  That the kernel's own
+    indexing takes each tile once is held on the card
+    (`test_phi_kernel_bitwise_on_ragged_tails`)."""
+    geo = tlanes.launch_geometry(n_tiles, tile)
+    n = tile * tile
+    assert geo.warp_path and geo.threads == 4 * 32
+    assert geo.tiles_per_warp * n == max(32, n) and n <= 2 * 32
+    assert geo.tiles_per_block == 4 * geo.tiles_per_warp
+    assert (geo.grid - 1) * geo.tiles_per_block < n_tiles <= geo.grid * geo.tiles_per_block
+
+
+@pytest.mark.parametrize("tile,n_tiles", [(16, 3), (32, 1000), (64, 264), (128, 100),
+                                          (128, 5000), (256, 64), (256, 512), (1024, 3)])
+def test_block_path_grid(tile, n_tiles):
+    """One tile per block; from 128 x 128 the planes (400 KB, 1.6 MB at 256)
+    exceed shared memory, so at most GLOBAL_BLOCKS blocks stride over the
+    tiles, each with its own scratch slice."""
+    geo = tlanes.launch_geometry(n_tiles, tile)
+    assert not geo.warp_path and geo.tiles_per_block == 1
+    if tile >= 128:
+        assert geo.ws_global and geo.grid == min(n_tiles, tlanes.GLOBAL_BLOCKS)
+        assert geo.scratch_bytes == geo.grid * tlanes.PLANE_BYTES_PER_PIXEL * tile * tile
+        strided = [list(range(b, n_tiles, geo.grid)) for b in range(geo.grid)]
+        assert sorted(t for s in strided for t in s) == list(range(n_tiles))
+    else:
+        assert not geo.ws_global and geo.grid == n_tiles
+        assert geo.smem == tlanes.HEADER_BYTES + tlanes.PLANE_BYTES_PER_PIXEL * tile * tile
+
+
+def test_warp_path_has_no_block_barrier():
+    """Structural, a search of the source text between the two paths'
+    section comments: the warp path (tiles up to 8 x 8) synchronizes only
+    within a warp, with no __syncthreads and no shared memory.  (The
+    resource dump of `ops/morph_tiles_ab.py` shows its instances' shared
+    memory and stack on the card.)"""
+    src = build._source_and_flags("morph_tiles")[0].read_text()
+    start = src.index("// ---- warp path")
+    body = src[start:src.index("// ---- block path", start)]
+    assert "phi_warp_kernel" in body
+    assert "__syncthreads" not in body and "__shared__" not in body
+
+
+@pytest.mark.parametrize("tile", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_kernel_otsu_bin_is_the_plain_versions_up_to_128(tile):
+    """The kernel's bitwise argument for Otsu: up to 128 x 128 its integer
+    scan picks the plain version's bin on every Otsu input of every option
+    (random tiles, constant tiles, two-valued tiles with tied runs)."""
+    rng = np.random.default_rng(tile + 7)
+    g = rng.random((6, tile, tile)).astype(np.float32)
+    g[1] = 0.5
+    g[2] = np.where(rng.random((tile, tile)) < 0.5, 0.25, 0.75)
+    g[3] = np.round(g[3] * 4) / 4
+    tiles = torch.from_numpy(g)
+    for canny_impl, binarize_impl in itertools.product(tmorph.CANNY_IMPLS,
+                                                       tmorph.BINARIZE_IMPLS):
+        assert not tlanes.otsu_bins_differ(tiles, canny_impl, binarize_impl).any()
 
 
 @pytest.mark.parametrize("canny_impl,binarize_impl,contour_components", OPTIONS)
@@ -179,13 +264,14 @@ def test_kernel_args_carry_the_option_flags(canny_impl, binarize_impl, contour_c
     assert ints[:4] == (3, 10, 6, 2)
     assert ints[4:7] == (int(canny_impl == "legacy"), int(binarize_impl == "otsu"),
                          int(contour_components))
-    assert ints[7:] == (geo.tiles_per_group, geo.grid, int(geo.ws_global), geo.ws_bytes,
-                        geo.smem) == (16, 12, 0, 6400, 9088)
+    # 180 tiles of 4 x 4: 2 a warp, 8 a block, 23 blocks, no shared memory
+    assert ints[7:] == (geo.tiles_per_block, geo.grid, int(geo.ws_global), geo.ws_bytes,
+                        geo.smem) == (8, 23, 0, 0, 0)
 
 
 @pytest.mark.parametrize("gray,tile,match", [
     (torch.zeros(2, 16, 16), 3, "power of two"),
-    (torch.zeros(2, 256, 256), 256, "power of two"),
+    (torch.zeros(1, 2048, 2048), 2048, "power of two"),
     (torch.zeros(2, 16, 20), 8, "whole tiles"),
     (torch.zeros(2, 16, 16, dtype=torch.float64), 4, "float32"),
     (torch.zeros(2, 16, 32)[:, :, ::2], 4, "contiguous"),
@@ -194,8 +280,12 @@ def test_kernel_args_carry_the_option_flags(canny_impl, binarize_impl, contour_c
 def test_kernel_refuses_what_it_does_not_take(gray, tile, match):
     with pytest.raises(ValueError, match=match):
         tlanes.kernel_args(gray, tile, "cv2compat", "adaptive", True)
-    with pytest.raises(ValueError, match=match):
-        tlanes.phi_tiles(gray, tile)  # the CPU op checks alike
+    if tile > tlanes.MAX_TILE:
+        # above the kernel's bound (1024) the CPU op still answers
+        assert tlanes.phi_tiles(gray, tile).shape == (1, 1, 1, 8)
+    else:
+        with pytest.raises(ValueError, match=match):
+            tlanes.phi_tiles(gray, tile)  # the CPU op checks alike
 
 
 def test_kernel_refuses_an_unknown_option():
