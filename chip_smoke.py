@@ -142,6 +142,18 @@ Phases (any failure exits non-zero and prints no result):
      with the one-rank program's detections of score >= 0.25 so that the
      mAP moves with every detection, with the one-rank mAP (cuDNN off, as in
      serving's check) and 3 launches per rank per forward.
+ 11. the entry points and the train example: `entry()` (yolov8n, nc 80, MLP
+     mapper, float32, seeded) and its fn on its (4, 3, 640, 640) zero images
+     and on 4 letterboxed serving images, each call with 3 spatial_quant
+     and 3 phi_tiles launches, raw maps bitwise equal to the same model
+     with quant_backend='torch', finite outputs, timed; `dryrun_multichip(2)`
+     (two spawned ranks sharing the card over gloo) with its three lines
+     and each rank's launches per program (DP step 0 + 3, DP serving 3 + 3,
+     FSDP step 0 + 3), its DP step's loss and avg_bits within 1e-3 relative
+     of the same dryrun on two CPU ranks (TF32 off, the ranks inherit it);
+     `examples/train_example_torch.py` end to end on the
+     card (16 images, 128 px, 3 epochs, then one image served), its
+     Trainer.train and Predictor.predict launches counted apart.
 
 Output: JSON lines; before the last, the `{"kernels": [...]}` summary
 (spatial_quant and phi_tiles, each with `launches_by_path`); the last line
@@ -2530,6 +2542,178 @@ def phase_multi_device(device, workdir: Path, gpu: str, inputs: dict) -> dict:
     return {"dp_serving": serve_two["launches"], "dp_evaluate": ev_two["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11
+# ---------------------------------------------------------------------------
+
+DRYRUN_RANKS = 2    # dryrun_multichip's ranks here: they share the one card over gloo
+ENTRY_REPS = 5      # timed calls of entry()'s fn per input
+
+
+def _entry_call(model, fn, x, name: str) -> dict:
+    """fn(model, x) through the kernels and through the quantizer's plain
+    version: 3 spatial_quant and 3 phi_tiles launches in the first, none of
+    spatial_quant in the second, raw maps bitwise equal, outputs finite;
+    then the kernel call timed (host clock around synchronised calls)."""
+    import torch
+
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+    from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
+
+    zero_launches()
+    raw, avg_bits = fn(model, x)
+    torch.cuda.synchronize()
+    launches = {"spatial_quant": sq.spatial_quantize.launches,
+                "phi_tiles": ml.phi_tiles.launches}
+    model.set_quant_backend("torch")
+    try:
+        zero_launches()
+        raw_p, avg_p = fn(model, x)
+        torch.cuda.synchronize()
+        plain = sq.spatial_quantize.launches
+    finally:
+        model.set_quant_backend("auto")
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(raw, raw_p)) and torch.equal(avg_bits, avg_p)
+    finite = all(bool(torch.isfinite(a).all()) for a in raw) and bool(torch.isfinite(avg_bits))
+    times = []
+    for _ in range(ENTRY_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(model, x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000.0)
+    check(launches == {"spatial_quant": 3, "phi_tiles": 3},
+          f"entry fn on {name}: launches {launches} (expected 3 of each a call)")
+    check(plain == 0, f"entry fn on {name}: the plain path launched spatial_quant {plain} times")
+    check(same, f"entry fn on {name}: raw maps differ between the kernel and the plain path")
+    check(finite, f"entry fn on {name}: non-finite output")
+    return {"launches": launches, "plain_launches": plain, "raw_maps_bitwise_equal": same,
+            "finite": finite, "avg_bits": float(avg_bits),
+            "shapes": [list(a.shape) for a in raw], "ms": sorted(times)[len(times) // 2]}
+
+
+def phase_entry_and_example(device, workdir: Path, gpu: str) -> dict:
+    """Phase 11: the entry points (`mcaq_yolo_tpu_torch/entry.py`): entry()'s
+    fn on its zero images and on letterboxed serving images; the 2-rank
+    dryrun (the ranks share the card over gloo), each program's launches
+    per rank; the train example end to end, its Trainer.train and
+    Predictor.predict each counted.  Temporary files go under `workdir`."""
+    import importlib.util
+    import tempfile as tf
+
+    import numpy as np
+    import torch
+
+    from mcaq_yolo_tpu_torch import entry as port_entry
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+    from mcaq_yolo_tpu_torch.data.dataset import letterbox
+    from mcaq_yolo_tpu_torch.inference import Predictor
+    from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
+    from mcaq_yolo_tpu_torch.train import Trainer
+
+    wall = {}
+    t0 = time.perf_counter()
+    fn, (model, zeros) = port_entry.entry(device)
+    check(tuple(zeros.shape) == (4, 3, IMG, IMG) and zeros.device.type == device.type
+          and zeros.is_contiguous(memory_format=torch.channels_last),
+          f"entry's images: {tuple(zeros.shape)} on {zeros.device}")
+    served = np.stack([letterbox(im, IMG)[0] for im in serving_images(seed=5, count=1)[:4]])
+    served = torch.from_numpy(served).to(device).float().div(255.0).permute(0, 3, 1, 2)
+    calls = {"zeros": _entry_call(model, fn, zeros, "zeros"),
+             "serving_images": _entry_call(model, fn, served, "serving images")}
+    del model
+    wall["entry"] = round(time.perf_counter() - t0, 3)
+
+    before = tf.tempdir
+    tf.tempdir = str(workdir)  # the dryrun's store and the example's dataset
+    try:
+        t0 = time.perf_counter()
+        dry = port_entry.dryrun_multichip(DRYRUN_RANKS, device=device)
+        wall["dryrun"] = round(time.perf_counter() - t0, 3)
+        t0 = time.perf_counter()
+        dry_cpu = port_entry.dryrun_multichip(DRYRUN_RANKS, device="cpu")
+        wall["dryrun_cpu"] = round(time.perf_counter() - t0, 3)
+
+        counts = {}
+
+        def counted(name, method):
+            def run(*args, **kwargs):
+                zero_launches()
+                out = method(*args, **kwargs)
+                torch.cuda.synchronize()
+                counts[name] = {"spatial_quant": sq.spatial_quantize.launches,
+                                "phi_tiles": ml.phi_tiles.launches}
+                return out
+            return run
+
+        spec = importlib.util.spec_from_file_location(
+            "train_example_torch", ROOT / "examples" / "train_example_torch.py")
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        train, predict = Trainer.train, Predictor.predict
+        Trainer.train = counted("train", train)
+        Predictor.predict = counted("serve", predict)
+        try:
+            t0 = time.perf_counter()
+            ex = example.main([] if device.type == "cuda" else ["--device", "cpu"])
+            wall["example"] = round(time.perf_counter() - t0, 3)
+        finally:
+            Trainer.train, Predictor.predict = train, predict
+    finally:
+        tf.tempdir = before
+
+    # the card's ranks against the CPU's on the same seeded weights and batch
+    # (TF32 off, as in phase 5's step): the first program's loss and bits
+    # within phase 5's 1e-3; the later programs start from weights the first
+    # step moved, so they are printed, not bounded
+    dry_rel = {k: abs(dry["dp"][k] - dry_cpu["dp"][k]) / abs(dry_cpu["dp"][k])
+               for k in ("loss", "avg_bits")}
+    expected = {"dp": {"spatial_quant": 0, "phi_tiles": 3},
+                "serving": {"spatial_quant": 3, "phi_tiles": 3},
+                "fsdp": {"spatial_quant": 0, "phi_tiles": 3}}
+    res = ex["inference"]
+    emit({"phase": "entry_and_example", "gpu": gpu, "entry": calls,
+          "dryrun": {"ranks": DRYRUN_RANKS, "dp": dry["dp"], "serving": dry["serving"],
+                     "fsdp": dry["fsdp"], "launches_per_rank": dry["launches_per_rank"],
+                     "cpu_ranks": {k: dry_cpu[k] for k in ("dp", "serving", "fsdp")},
+                     "dp_rel_err_vs_cpu": dry_rel, "tolerance": "DP step 1e-3 relative"},
+          "example": {"launches": counts, "epochs": len(ex["history"]),
+                      "best_map50": ex["results"]["best_map50"],
+                      "avg_bits": res["avg_bits"], "detections": len(res["detections"]),
+                      "history_avg_bits": [round(h.get("avg_bits", float("nan")), 4)
+                                           for h in ex["history"]]},
+          "wall_s": wall})
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 must be off for the dryrun's card-versus-CPU check")
+    check(max(dry_rel.values()) <= 1e-3, f"the dryrun's DP step on the card differs from "
+                                         f"the CPU's: {dry_rel}")
+    check(all(r == expected for r in dry["launches_per_rank"]),
+          f"dryrun launches per rank {dry['launches_per_rank']} (expected {expected})")
+    check(ex["checkpoint"].is_file() and len(ex["history"]) == 3,
+          "the example wrote no last.ckpt or not 3 epochs of history")
+    check(2.0 <= res["avg_bits"] <= 8.0 and all(
+        np.isfinite(d["bbox"]).all() and np.isfinite(d["confidence"])
+        for d in res["detections"]), f"the example's result: avg_bits {res['avg_bits']}")
+    check(counts.get("serve") == {"spatial_quant": 3, "phi_tiles": 3},
+          f"the example's Predictor.predict launched {counts.get('serve')} (expected 3 + 3)")
+    check(counts["train"]["spatial_quant"] > 0 and counts["train"]["phi_tiles"] > 0,
+          f"the example's training launched {counts['train']}")
+
+    def total(kernel, *parts):
+        return sum(p[kernel] for p in parts)
+
+    entry_parts = [c["launches"] for c in calls.values()]
+    dry_parts = list(dry["launches"].values())
+    example_parts = list(counts.values())
+    PHI_LAUNCHES["entry"] = total("phi_tiles", *entry_parts)
+    PHI_LAUNCHES["dryrun"] = total("phi_tiles", *dry_parts)
+    PHI_LAUNCHES["example"] = total("phi_tiles", *example_parts)
+    return {"entry": total("spatial_quant", *entry_parts),
+            "dryrun": total("spatial_quant", *dry_parts),
+            "example": total("spatial_quant", *example_parts)}
+
+
 def _numbers(tree, skip=("spearman_rho", "spearman_p", "quartiles")):
     """The numbers of a result tree, without M4's rank test and quartile
     CIs (undefined, NaN, when every per-image gain is equal)."""
@@ -2618,6 +2802,8 @@ def main() -> int:
             "eval_ckpt": str(Path(tmp) / "mcaq_yolov8n.ckpt"),
             "val_dir": str(Path(tmp) / "ds" / "images" / "val")}))
         lap("10_multi_device")
+        path_launches.update(phase_entry_and_example(device, Path(tmp), gpu))
+        lap("11_entry_and_example")
     emit({"phase": "wall_s", "gpu": gpu, **wall, "total": round(sum(wall.values()), 3)})
 
     emit({"kernels": [{

@@ -36,11 +36,20 @@ _PROBE = textwrap.dedent("""
                  "scripts.downsample_fidelity", "scripts.pretopk_equivalence",
                  "scripts.backend_agreement", "scripts.profile_morphology",  # diagnostics
                  "scripts.roofline", "scripts.perf_sweep_diag", "scripts.train_breakdown",
-                 "utils.profiling", "core.morphology_lanes"):
+                 "utils.profiling", "core.morphology_lanes",
+                 "entry"):  # the entry points
         assert "mcaq_yolo_tpu_torch." + name in names, name
     import torch
     assert hasattr(torch.ops.mcaq, "spatial_quantize")  # registered at import
     assert hasattr(torch.ops.mcaq, "phi_tiles")
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("train_example_torch",
+                                                  "examples/train_example_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)  # the port's train example
+    loaded = [n for n, m in sys.modules.items()
+              if n.split(".")[0] in BLOCKED and m is not None]
+    assert not loaded, loaded
     from mcaq_yolo_tpu_torch.ops import build
     assert not build._libs  # nothing was built or loaded
 
@@ -51,6 +60,7 @@ _PROBE = textwrap.dedent("""
         from mcaq_yolo_tpu_torch.models.yolo import YOLOv8
         from mcaq_yolo_tpu_torch.train import Trainer
         from mcaq_yolo_tpu_torch.data.device_pipeline import DevicePipeline
+        from mcaq_yolo_tpu_torch.entry import dryrun_multichip, entry
         from mcaq_yolo_tpu_torch.train import main
         from mcaq_yolo_tpu_torch.inference import main as infer_main
         from mcaq_yolo_tpu_torch.scripts import (downsample_fidelity, m3_permutation,
@@ -68,6 +78,7 @@ _PROBE = textwrap.dedent("""
                       lambda: DevicePipeline(type("D", (), {"img_size": 64})()),
                       lambda: main(["--config", "/nonexistent/never-read.yaml"]),
                       lambda: infer_main(["--model", "no-such.ckpt", "--source", "."]),
+                      entry, lambda: dryrun_multichip(2), lambda: example.main([]),
                       *script_mains):
             try:
                 build()
@@ -122,6 +133,7 @@ def test_port_sources_name_no_jax_import():
 
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|mcaq_yolo_tpu)\b", re.M)
     files = list((REPO / "mcaq_yolo_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tests" / "torch_parallel_worker.py"]
+        REPO / "chip_smoke.py", REPO / "tests" / "torch_parallel_worker.py",
+        REPO / "examples" / "train_example_torch.py"]
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders
