@@ -154,6 +154,15 @@ Phases (any failure exits non-zero and prints no result):
      `examples/train_example_torch.py` end to end on the
      card (16 images, 128 px, 3 epochs, then one image served), its
      Trainer.train and Predictor.predict launches counted apart.
+ 12. the bench entry: `python -m mcaq_yolo_tpu_torch.bench` in a process
+     of its own with a short budget (BENCH_TIME_BUDGET_S=180,
+     BENCH_ITERS=8): rc 0, the headline first, bench.py's keys and metric
+     name on the last line, every arm but torch_cpu_fallback measured (that
+     one needs the reference's checkout: skipped with its reason), the
+     card's name and power limit in `extra.device`, 3 spatial_quant and 3
+     phi_tiles launches per forward of the headline program (the plain and
+     train arms 0 + 3), 5 runs a measurement, the headline within 0.5-2x of
+     phase 4's bs-256 program; the committed record is put back after.
 
 Output: JSON lines; before the last, the `{"kernels": [...]}` summary
 (spatial_quant and phi_tiles, each with `launches_by_path`); the last line
@@ -2714,6 +2723,105 @@ def phase_entry_and_example(device, workdir: Path, gpu: str) -> dict:
             "example": total("spatial_quant", *example_parts)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12
+# ---------------------------------------------------------------------------
+
+# a short budget and few iterations: the gates still pass every arm (each
+# needs its estimate + 20 s left), and the phase takes about a minute
+BENCH_ENV = {"BENCH_TIME_BUDGET_S": "180", "BENCH_ITERS": "8"}
+BENCH_RECORD = ROOT / "evidence" / "torch" / "bench_last.json"
+BENCH_METRIC = "yolov8n_mcaq_e2e_infer_640_images_per_sec_per_chip"
+# arm -> (spatial_quant, phi_tiles) launches per call of its program
+BENCH_LAUNCHES = {"headline": (3, 3), "e2e_bs128_ds2": (3, 3), "e2e_bs256_ds1": (3, 3),
+                  "fwd_bs256_ds2": (3, 3), "plain_bs32": (0, 3),
+                  "train_yolov8m_bs32": (0, 3)}
+BENCH_RUNS_KEYS = ("e2e_decode_nms_sweep_imgs_per_sec_runs", "fwd_only_imgs_per_sec_runs",
+                   "infer_torch_backend_imgs_per_sec_runs",
+                   "train_yolov8m_bs32_imgs_per_sec_per_chip_runs")
+
+
+def phase_bench(gpu: str, program_images_per_s: float) -> dict:
+    """Phase 12: `python -m mcaq_yolo_tpu_torch.bench` in a process group of
+    its own, as a user runs it (with BENCH_ENV): rc 0, the headline line
+    first, bench.py's keys and metric name on the last line, every arm but
+    torch_cpu_fallback measured, the card named, 3 + 3 launches per forward
+    of the headline program (and each arm's expected launches), and the
+    headline within 0.5-2x of phase 4's bs-256 program (`program_images_per_s`).
+    The record it writes is checked against its last line, then the
+    committed `evidence/torch/bench_last.json` is put back."""
+    import os
+    import signal
+
+    import torch
+
+    torch.cuda.empty_cache()  # leave the card's memory to the bench's process
+    committed = BENCH_RECORD.read_bytes() if BENCH_RECORD.exists() else None
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_ENV)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "mcaq_yolo_tpu_torch.bench"], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=float(BENCH_ENV["BENCH_TIME_BUDGET_S"]) + 240)
+        written = BENCH_RECORD.read_text() if BENCH_RECORD.exists() else ""
+    finally:
+        if proc.poll() is None:  # the wrapper and its child: the whole group
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        if committed is not None:
+            BENCH_RECORD.write_bytes(committed)
+    wall = round(time.perf_counter() - t0, 3)
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    check(proc.returncode == 0 and lines, f"the bench exited {proc.returncode}: "
+                                          f"{(out + err)[-2000:]}")
+    first, last = json.loads(lines[0]), json.loads(lines[-1])
+    ex = last.get("extra", {})
+    emit({"phase": "bench", "gpu": gpu, "env": BENCH_ENV, "lines": len(lines),
+          "first_line_value": first.get("value"), "record": last,
+          "phase4_bs256_images_per_s": program_images_per_s, "wall_s": wall})
+    check(all(k in last for k in ("metric", "value", "unit", "vs_baseline", "extra")),
+          f"the bench's last line lacks bench.py's keys: {sorted(last)}")
+    check(last["metric"] == BENCH_METRIC and first.get("metric") == BENCH_METRIC,
+          f"the bench's metric {last['metric']!r} (expected {BENCH_METRIC!r})")
+    check(first.get("value", 0) > 0 and "headline_config" in first.get("extra", {}),
+          "the bench's first line is not the headline")
+    check(last["vs_baseline"] == round(last["value"] / 151.0, 3),
+          f"vs_baseline {last['vs_baseline']} for value {last['value']}")
+    check(json.loads(written or "{}") == last,
+          "evidence/torch/bench_last.json is not the bench's last line")
+    missing = [a for a in BENCH_LAUNCHES if a != "headline" and
+               (a in ex.get("arm_errors", {}) or a in last["extra"]["skipped_arms"])]
+    check(not missing, f"bench arms not measured: {missing}: {ex.get('arm_errors')} "
+                       f"{ex.get('skip_reasons')}")
+    check("torch_cpu_fallback" in ex.get("skip_reasons", {})
+          or "torch_cpu_fallback_imgs_per_sec" in ex,
+          "torch_cpu_fallback neither measured nor skipped with a reason")
+    check(ex.get("device", {}).get("device") == torch.cuda.get_device_name(0)
+          and ex["device"].get("nvidia_smi") == gpu,
+          f"the bench's device stamp {ex.get('device')} (expected {gpu})")
+    for arm, (sq_n, phi_n) in BENCH_LAUNCHES.items():
+        got = ex["launches"].get(arm, {})
+        check(got.get("spatial_quant") == sq_n and got.get("phi_tiles") == phi_n,
+              f"bench {arm}: launches per call {got} (expected {sq_n} + {phi_n})")
+        check(arm in ex.get("peak_mem_GB", {}), f"bench {arm}: no peak memory")
+    runs = [r for key in BENCH_RUNS_KEYS for r in (
+        ex[key].values() if isinstance(ex.get(key), dict) else [ex.get(key, [])])]
+    check(len(runs) == len(BENCH_LAUNCHES) and all(len(r) == 5 for r in runs),
+          f"the bench's runs: {runs} (expected 5 for each of {len(BENCH_LAUNCHES)} "
+          "measurements)")
+    ratio = last["value"] / program_images_per_s
+    check(0.5 <= ratio <= 2.0, f"the bench's headline {last['value']} images/s is "
+                              f"{ratio:.2f}x phase 4's bs-256 program")
+
+    def total(kernel):
+        return int(round(sum(v[kernel] * v["calls"] for v in ex["launches"].values())))
+
+    PHI_LAUNCHES["bench"] = total("phi_tiles")
+    return {"bench": total("spatial_quant")}
+
+
 def _numbers(tree, skip=("spearman_rho", "spearman_p", "quartiles")):
     """The numbers of a result tree, without M4's rank test and quartile
     CIs (undefined, NaN, when every per-image gain is equal)."""
@@ -2779,7 +2887,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         pred, launches = phase_deployed_program(device, dtype, Path(tmp))
         lap("3_deployed_program")
-        rows, _, phi_rows = phase_timings(pred, device, dtype)
+        rows, throughput, phi_rows = phase_timings(pred, device, dtype)
         del pred
         lap("4_timings")
         trainer, path_launches = phase_training(device, Path(tmp))
@@ -2804,6 +2912,8 @@ def main() -> int:
         lap("10_multi_device")
         path_launches.update(phase_entry_and_example(device, Path(tmp), gpu))
         lap("11_entry_and_example")
+    path_launches.update(phase_bench(gpu, throughput[256]))
+    lap("12_bench")
     emit({"phase": "wall_s", "gpu": gpu, **wall, "total": round(sum(wall.values()), 3)})
 
     emit({"kernels": [{

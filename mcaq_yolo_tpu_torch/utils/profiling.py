@@ -42,6 +42,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from ..device import resolve_device
 from .cuda_timing import cuda_ms
 
 aten = torch.ops.aten
@@ -82,9 +83,10 @@ def trace(log_dir: Optional[str] = None):
 
 
 def timed(fn: Callable, *args, iters: int = 50, warmup: int = 3, device=None) -> float:
-    """Steady-state seconds per call of fn(*args) on `device` (default CUDA
-    when there is a card): the median of `iters` timed calls."""
-    device = device or ("cuda" if torch.cuda.is_available() else "cpu")
+    """Steady-state seconds per call of fn(*args) on `device` (default CUDA;
+    raises without a card unless device="cpu"): the median of `iters` timed
+    calls."""
+    device = resolve_device(device)
     ms = interleaved_ms({"fn": lambda _: fn(*args)}, None, iters, warmup, device)["fn"]
     return statistics.median(ms) * 1e-3
 

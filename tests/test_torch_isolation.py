@@ -37,7 +37,7 @@ _PROBE = textwrap.dedent("""
                  "scripts.backend_agreement", "scripts.profile_morphology",  # diagnostics
                  "scripts.roofline", "scripts.perf_sweep_diag", "scripts.train_breakdown",
                  "utils.profiling", "core.morphology_lanes",
-                 "entry"):  # the entry points
+                 "entry", "bench", "scripts.gen_readme_tables"):  # the entry points
         assert "mcaq_yolo_tpu_torch." + name in names, name
     import torch
     assert hasattr(torch.ops.mcaq, "spatial_quantize")  # registered at import

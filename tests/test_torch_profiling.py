@@ -24,7 +24,8 @@ computes the same thing.
     difference reorders.
   * `trace` without a directory writes under the temporary directory;
     `inference.deployed_program` keeps the Predictor's output contract.
-  * every new script's `main` raises without CUDA.
+  * every new script's `main`, and `timed` given no device, raise without
+    CUDA.
 """
 
 import tempfile
@@ -128,6 +129,15 @@ def test_component_breakdown_keys_and_with_mcaq(model, images):
     assert len(q) == 3
     for a, b in zip(aux["quantized_features"], q):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_timed_without_a_device_needs_cuda():
+    """`timed` with no device resolves it as every entry point does: CUDA,
+    and on a host without a card it raises rather than timing the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: timed() runs on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profiling.timed(lambda a: a * 2, torch.ones(4), iters=1, warmup=0)
 
 
 def test_timed_and_trace(tmp_path):
