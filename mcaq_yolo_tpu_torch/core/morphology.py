@@ -46,6 +46,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import initializers as init
+from ..utils.profiling import count, span
 from . import image_ops as iops
 
 # ---------------------------------------------------------------------------
@@ -656,15 +657,19 @@ def score_image_eq8(images: torch.Tensor, grid_size: int = 8,
 def bilateral_filter(c_map: torch.Tensor, sigma_spatial: float = 2.0,
                      sigma_range: float = 0.1, kernel_size: int = 5) -> torch.Tensor:
     """Bilateral filter of a (B, ht, wt) complexity map with replicate
-    padding (reference `morphology.py:474-501`)."""
+    padding (reference `morphology.py:474-501`).  Its spatial weights are
+    copied from the host on every call: one host sync (`host_syncs`, span
+    'sync.bilateral_weights')."""
     B, H, W = c_map.shape
     pad = kernel_size // 2
     xp = iops.replicate_pad(c_map, pad)
     patches = torch.stack(
         [xp[:, pad + dy:pad + dy + H, pad + dx:pad + dx + W]
          for dy in range(-pad, pad + 1) for dx in range(-pad, pad + 1)], dim=-1)
-    sw = torch.tensor(iops.spatial_weights(kernel_size, sigma_spatial),
-                      dtype=torch.float32, device=c_map.device)
+    with span("sync.bilateral_weights"):
+        count("host_syncs")
+        sw = torch.tensor(iops.spatial_weights(kernel_size, sigma_spatial),
+                          dtype=torch.float32, device=c_map.device)
     range_w = torch.exp(-((patches - c_map[..., None]) ** 2) / (2.0 * sigma_range ** 2))
     weights = sw * range_w
     return (weights * patches).sum(dim=-1) / (weights.sum(dim=-1) + 1e-8)

@@ -50,6 +50,7 @@ from .parallel.mesh import (
 )
 from .utils.checkpoint import load_meta
 from .utils.model_utils import restore_into
+from .utils.profiling import span
 
 
 def auto_pre_topk(max_det: int, conf_threshold: float = 0.25) -> int:
@@ -67,15 +68,17 @@ def deployed_program(model: MCAQYOLO, images: torch.Tensor, num_classes: int,
     """The deployed program: the quantized forward at `temperature`, then
     decode + NMS, on (B, S, S, 3) uint8 -> (boxes, scores, classes, valid,
     avg_bits, the P3 complexity map, the P3 bit map, the above-gate
-    candidate count per image).  `pre_topk` None: `auto_pre_topk`."""
+    candidate count per image).  `pre_topk` None: `auto_pre_topk`.  One
+    call is one root span, 'deployed_program' (`utils/profiling.py`)."""
     if pre_topk is None:
         pre_topk = auto_pre_topk(max_det, conf_threshold)
-    raw, aux = model(images, temperature=temperature, quantize=True)
-    *det, gated_count = decode_and_nms(
-        raw, num_classes, conf_threshold=conf_threshold, iou_threshold=iou_threshold,
-        max_det=max_det, pre_topk=pre_topk, with_pool_stats=True)
-    return tuple(det) + (aux["avg_bits"], aux["complexity_map"][0], aux["bit_map"][0],
-                         gated_count)
+    with span("deployed_program"):
+        raw, aux = model(images, temperature=temperature, quantize=True)
+        *det, gated_count = decode_and_nms(
+            raw, num_classes, conf_threshold=conf_threshold, iou_threshold=iou_threshold,
+            max_det=max_det, pre_topk=pre_topk, with_pool_stats=True)
+        return tuple(det) + (aux["avg_bits"], aux["complexity_map"][0], aux["bit_map"][0],
+                             gated_count)
 
 
 class Predictor:

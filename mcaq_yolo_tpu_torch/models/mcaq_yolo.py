@@ -36,6 +36,7 @@ from ..core.morphology import TILE_ENGINES, MorphologicalComplexityAnalyzer
 from ..core.quantization import SpatialAdaptiveQuantization
 from ..device import DeviceLike, resolve_device
 from ..parallel.mesh import all_mean
+from ..utils.profiling import span
 from .yolo import (
     DetectHead,
     YOLOv8Backbone,
@@ -135,7 +136,9 @@ class MCAQYOLO(nn.Module):
         """feat NCHW channels_last -> (feat_q NCHW, complexity, bit_map).
         Continuous bits with `training`; `quantize=False` (curriculum
         Stage 1) still runs the analyzer and the mapper.  A given `bit_map`
-        (B, Ht, Wt) replaces the analyzer and the mapper (complexity None)."""
+        (B, Ht, Wt) replaces the analyzer and the mapper (complexity None).
+        Spans 'mcaq.analyzer', 'mcaq.mapper', 'mcaq.quantize' (attribute
+        `scale`: 3, 4, 5 for P3-P5)."""
         # the MCAQ math runs in float32 even under a bf16 autocast (training);
         # without autocast no context is entered, so torch.export traces plain ops
         autocast = torch.is_autocast_enabled(feat.device.type)
@@ -143,16 +146,20 @@ class MCAQYOLO(nn.Module):
                 else contextlib.nullcontext():
             f = feat.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
             complexity = None
+            scale = scale_idx + 3
             if bit_map is None:
-                complexity = self.complexity_analyzer(f)
-                if self.normalize_complexity:
-                    complexity = percentile_normalize(complexity)
-                bit_map = self.bit_mapper(complexity, temperature,
-                                          return_continuous=training, training=training)
+                with span("mcaq.analyzer", scale=scale):
+                    complexity = self.complexity_analyzer(f)
+                    if self.normalize_complexity:
+                        complexity = percentile_normalize(complexity)
+                with span("mcaq.mapper", scale=scale):
+                    bit_map = self.bit_mapper(complexity, temperature,
+                                              return_continuous=training, training=training)
             fq = f
             if quantize:
-                fq = self.quantizers[scale_idx](f, bit_map, training=training,
-                                                update_stats=update_stats)
+                with span("mcaq.quantize", scale=scale):
+                    fq = self.quantizers[scale_idx](f, bit_map, training=training,
+                                                    update_stats=update_stats)
         return fq.permute(0, 3, 1, 2), complexity, bit_map
 
     def forward(self, x: torch.Tensor, temperature: float = 1.0, quantize: bool = True,
@@ -173,7 +180,8 @@ class MCAQYOLO(nn.Module):
     def _forward(self, x, temperature, quantize, training, update_stats, given_maps=None):
         no_grad = not training and torch.is_grad_enabled()
         with torch.no_grad() if no_grad else contextlib.nullcontext():
-            feats = self.backbone(images_to_nchw(x, self.dtype), training)
+            with span("model.backbone"):
+                feats = self.backbone(images_to_nchw(x, self.dtype), training)
             feats_q, complexity_maps, bit_maps = [], [], []
             for i, f in enumerate(feats):
                 fq, c, b = self.mcaq_transform(
@@ -182,7 +190,11 @@ class MCAQYOLO(nn.Module):
                 feats_q.append(fq)
                 complexity_maps.append(c)
                 bit_maps.append(b)
-            raw_maps = self.head(self.neck(*feats_q, training), training)
+            with span("model.neck"):
+                necked = self.neck(*feats_q, training)
+            with span("model.head"):
+                raw_maps = self.head(necked, training)
+            del necked   # freed as the head returns, as without the spans
         avg_bits = all_mean(torch.stack([b.to(torch.float32).mean() for b in bit_maps]).mean(),
                             self.data_group)
         aux: Dict = {

@@ -20,6 +20,7 @@ import torch.nn as nn
 from .. import initializers as init
 from ..device import DeviceLike, resolve_device
 from ..ops.nms import nms_from_topk, stable_topk
+from ..utils.profiling import span
 from .layers import SPPF, C2f, ConvBnSiLU, upsample2x
 
 # variant: (depth_mult, width_mult, max_channels)
@@ -255,8 +256,16 @@ def decode_and_nms(raw_maps: Sequence[torch.Tensor], num_classes: int,
     Top-k over the per-anchor best class LOGIT (ties to the lowest index),
     sigmoid + confidence gate by zeroing, DFL decode of the k survivors
     only, class-aware greedy NMS, compaction to max_det.  Returns (boxes
-    (B, max_det, 4), scores, classes int32, valid) [+ gated count (B,)]."""
+    (B, max_det, 4), scores, classes int32, valid) [+ gated count (B,)].
+    One span, 'decode_and_nms'."""
     del num_classes  # implied by the raw-map width
+    with span("decode_and_nms"):
+        return _decode_and_nms(raw_maps, conf_threshold, iou_threshold, max_det, pre_topk,
+                               with_pool_stats)
+
+
+def _decode_and_nms(raw_maps, conf_threshold, iou_threshold, max_det, pre_topk,
+                    with_pool_stats):
     B = raw_maps[0].shape[0]
     device = raw_maps[0].device
     points, strides = make_anchors([m.shape[1:3] for m in raw_maps], device=device)

@@ -23,6 +23,8 @@ from typing import Tuple
 import torch
 from torch._higher_order_ops import while_loop
 
+from ..utils.profiling import count, span
+
 
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k along the last axis, descending, ties to the LOWEST index —
@@ -46,13 +48,20 @@ def iou_matrix(boxes: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
 
 def keep_fixed_point(suppress: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
     """The keep sweeps as a Python loop that reads its stop condition on
-    the host: the eager formulation."""
+    the host: the eager formulation.  Span 'nms.keep'; each sweep counts
+    in `nms_sweeps`, and its read of the stop condition, one host sync, in
+    `host_syncs` inside a span 'sync.nms_sweep'."""
     keep = alive
-    for _ in range(suppress.shape[-1]):
-        new = alive & ~(suppress & keep[..., :, None]).any(dim=-2)
-        if torch.equal(new, keep):
-            break
-        keep = new
+    with span("nms.keep"):
+        for _ in range(suppress.shape[-1]):
+            new = alive & ~(suppress & keep[..., :, None]).any(dim=-2)
+            count("nms_sweeps")
+            with span("sync.nms_sweep"):
+                count("host_syncs")
+                same = torch.equal(new, keep)
+            if same:
+                break
+            keep = new
     return keep
 
 

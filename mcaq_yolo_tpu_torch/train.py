@@ -105,6 +105,7 @@ from .utils.evaluation import (
     detections_to_numpy,
     extract_targets_per_image,
 )
+from .utils.profiling import span
 from .utils.repro import set_global_seed
 
 # ---------------------------------------------------------------------------
@@ -296,7 +297,9 @@ def make_train_step(model: MCAQYOLO, loss_obj: MCAQYOLOLoss,
     -> metrics (device tensors: the loss terms, avg_bits, bit_hist (7,),
     grad_norm).  `mark(name)`, when given, is called after each phase
     ('forward', 'teacher', 'loss', 'backward', 'optimizer'), e.g. to record
-    CUDA events.
+    CUDA events.  A step is one root span, 'train_step', holding a span
+    for each phase, 'train.<phase>' (`utils/profiling.py`), each closed
+    before its `mark`.
 
     Under data parallelism (`reduced_over(group, model, loss_obj)`) the
     batch is this rank's slice and the returned metrics are the global
@@ -315,34 +318,40 @@ def make_train_step(model: MCAQYOLO, loss_obj: MCAQYOLOLoss,
                    mark: Optional[Callable[[str], None]] = None):
         mark = mark or (lambda name: None)
         images = batch["image"]
-        with autocast():
-            raw_maps, aux = model(images, temperature=temperature, quantize=quantize,
-                                  training=True)
-        mark("forward")
-        teacher_maps = None
-        if use_kd and teacher is not None:
-            teacher_maps, t_feats = _teacher_outputs(teacher, images)
-            # student's QUANTIZED C3/C4/C5 against the teacher's float32 ones
-            aux["kd_feature_loss"] = kd_feature_loss(aux["quantized_features"], t_feats)
-        mark("teacher")
-        loss_weights = {"detection": 1.0, "bit_budget": lw_bit, "smoothness": lw_smooth,
-                        "distillation": lw_kd, "regularization": lw_reg}
-        total, loss_dict = loss_obj(raw_maps, batch, aux, teacher_maps=teacher_maps,
-                                    mapper=model.bit_mapper, loss_weights=loss_weights,
-                                    target_bits=target_bits)
-        mark("loss")
-        optimizer.zero_grad()
-        total.backward()
-        mark("backward")
-        grad_norm = optimizer.step()
-        enforce_monotonic_params(model.bit_mapper)  # Eq.18, after every step
-        mark("optimizer")
+        with span("train_step"):
+            with span("train.forward"), autocast():
+                raw_maps, aux = model(images, temperature=temperature, quantize=quantize,
+                                      training=True)
+            mark("forward")
+            teacher_maps = None
+            with span("train.teacher"):
+                if use_kd and teacher is not None:
+                    teacher_maps, t_feats = _teacher_outputs(teacher, images)
+                    # student's QUANTIZED C3/C4/C5 against the teacher's float32 ones
+                    aux["kd_feature_loss"] = kd_feature_loss(aux["quantized_features"],
+                                                             t_feats)
+            mark("teacher")
+            loss_weights = {"detection": 1.0, "bit_budget": lw_bit, "smoothness": lw_smooth,
+                            "distillation": lw_kd, "regularization": lw_reg}
+            with span("train.loss"):
+                total, loss_dict = loss_obj(raw_maps, batch, aux, teacher_maps=teacher_maps,
+                                            mapper=model.bit_mapper, loss_weights=loss_weights,
+                                            target_bits=target_bits)
+            mark("loss")
+            with span("train.backward"):
+                optimizer.zero_grad()
+                total.backward()
+            mark("backward")
+            with span("train.optimizer"):
+                grad_norm = optimizer.step()
+                enforce_monotonic_params(model.bit_mapper)  # Eq.18, after every step
+            mark("optimizer")
 
-        metrics = {k: v.detach() for k, v in loss_dict.items()}
-        metrics["avg_bits"] = aux["avg_bits"].detach()
-        metrics["bit_hist"] = sum(bit_histogram(b) for b in aux["bit_map"])
-        metrics["grad_norm"] = grad_norm
-        return _global_metrics(metrics, loss_obj.data_group)
+            metrics = {k: v.detach() for k, v in loss_dict.items()}
+            metrics["avg_bits"] = aux["avg_bits"].detach()
+            metrics["bit_hist"] = sum(bit_histogram(b) for b in aux["bit_map"])
+            metrics["grad_norm"] = grad_norm
+            return _global_metrics(metrics, loss_obj.data_group)
 
     return train_step
 

@@ -3,7 +3,11 @@ Tracing and profiling of the port (counterpart of
 `mcaq_yolo_tpu/utils/profiling.py`):
 
   * `trace(...)`: a `torch.profiler` capture of host and CUDA activity,
-    written as a Chrome trace (chrome://tracing, Perfetto).
+    written as a Chrome trace (chrome://tracing, Perfetto), with the
+    summary of the program's spans beside it (`spans.json`).
+  * `span(name, **attrs)`, `count(name, n)`, `counters()`,
+    `span_summary()`, `span_records()`: the program's own spans and
+    counters (section "Spans and counters" below).
   * `cuda_kernels(...)`: the exact number of CUDA kernels one call
     launches, counted in a CUDA graph capture of the call.
   * `timed(...)`: steady-state seconds per call, the median over calls.
@@ -30,13 +34,15 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import json
 import statistics
 import subprocess
 import tempfile
+import threading
 import time
 from collections import Counter
 from pathlib import Path
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -68,18 +74,249 @@ def device_stamp(device) -> Dict:
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None):
     """Profile the body (host, and CUDA when there is a card) and write
-    `<log_dir>/trace.json`; yields the directory (default: a new one
-    under the temporary directory, `tempfile.mkdtemp`)."""
+    `<log_dir>/trace.json` and the program's spans recorded meanwhile,
+    `<log_dir>/spans.json` (`span_summary()`); yields the directory
+    (default: a new one under the temporary directory, `tempfile.mkdtemp`)."""
     from torch.profiler import ProfilerActivity, profile
 
     log_dir = log_dir or tempfile.mkdtemp(prefix="mcaq_trace_")
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    _new_capture()
     with profile(activities=activities) as prof:
         yield log_dir
     Path(log_dir).mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+    (Path(log_dir) / "spans.json").write_text(json.dumps(span_summary(), indent=1))
+
+
+# ---------------------------------------------------------------------------
+# Spans and counters
+# ---------------------------------------------------------------------------
+#
+# A span is a named interval of the program, opened with `with span(name,
+# **attrs):` at a layer boundary.  It records only while a `torch.profiler`
+# capture is active (`trace()`, or any other profiler over the program):
+# its parent (the span open around it on the same thread), the call id of
+# its root span (every span of one deployed call or one train step shares
+# it), its host start and end (`time.perf_counter_ns`), on a card a start
+# and an end CUDA event on the current stream, and a `record_function`
+# annotation of the same name, so it lands in the profiler's trace beside
+# the kernels it launched, on the profiler's clock.  The time between its
+# two events is its stream time: from when the stream reached the span to
+# when its last kernel finished, the card's idle time inside the span
+# included (the time the stream waited for the host to enqueue).
+#
+# With no capture active a span returns a shared empty context: no event,
+# no annotation, no record.  Under `torch.compile` or `torch.export` it does
+# nothing, so a traced program holds no profiler op.
+#
+# `count(name, n)` adds to a plain dict of ints (`counters()`), always; while
+# a capture is active the count is also attached to the innermost open span,
+# so `span_summary()` can give it per root span.  The program's counters:
+#   host_syncs   one at every site of the deployed program and the train
+#                step where the host waits for the card (a pageable copy to
+#                the card, a read of a device value); each site runs inside
+#                a span `sync.<site>`.  Counted at the site on any device,
+#                so a CPU run counts the sites a card would block at.
+#   nms_sweeps   the keep sweeps of `ops/nms.py:keep_fixed_point`.
+# The kernels' launch counters stay where they are
+# (`spatial_quantize.launches`, `phi_tiles.launches`); `counters()` reports
+# them beside these.
+
+_COUNTERS: Dict[str, int] = {}
+_NULL = contextlib.nullcontext()
+_open = threading.local()     # .stack: the spans open on this thread
+
+
+class _Capture:
+    """The spans recorded while one profiler capture was active."""
+
+    def __init__(self):
+        self.records: List["_Span"] = []
+        self.calls = 0
+
+
+_capture = _Capture()
+_between = True   # a span was opened with no capture active since the last record
+
+
+def _new_capture() -> None:
+    global _capture, _between
+    _capture, _between = _Capture(), False
+
+
+_streams: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _current_stream():
+    """The current CUDA stream, its Python object made once per raw handle
+    (`torch.cuda.current_stream()` costs several microseconds a call)."""
+    raw = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    s = _streams.get(raw)
+    if s is None:
+        s = _streams[raw] = torch.cuda.current_stream()
+    return s
+
+
+def _stack() -> list:
+    st = getattr(_open, "stack", None)
+    if st is None:
+        st = _open.stack = []
+    return st
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "parent", "call", "index", "t0", "t1", "ev0", "ev1",
+                 "counts", "_rf", "_stream")
+
+    def __init__(self, name: str, attrs: Dict):
+        self.name, self.attrs = name, attrs
+        self.counts: Dict[str, int] = {}
+        self.t1 = self.ev0 = self.ev1 = None
+
+    def __enter__(self):
+        global _between
+        if _between:   # the profiler was off since the last record: a new capture
+            _new_capture()
+        st = _stack()
+        cap = _capture
+        self.parent = st[-1].index if st else None
+        if st:
+            self.call = st[-1].call
+        else:
+            self.call = cap.calls
+            cap.calls += 1
+        self.index = len(cap.records)
+        cap.records.append(self)
+        st.append(self)
+        self._rf = torch.autograd.profiler.record_function(
+            self.name, json.dumps(self.attrs) if self.attrs else None)
+        self._rf.__enter__()
+        if torch.cuda.is_initialized():
+            self._stream = _current_stream()
+            self.ev0 = torch.cuda.Event(enable_timing=True)
+            self.ev0.record(self._stream)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        if self.ev0 is not None:
+            self.ev1 = torch.cuda.Event(enable_timing=True)
+            self.ev1.record(self._stream)
+        self.t1 = time.perf_counter_ns()
+        self._rf.__exit__(*exc)
+        self._rf = None
+        _stack().pop()
+        return False
+
+
+def span(name: str, **attrs):
+    """A span of the program (section comment above): `with span('nms.keep'):`.
+    Recording only under an active profiler capture; otherwise an empty
+    context."""
+    global _between
+    if torch.autograd.profiler._is_profiler_enabled and not torch.compiler.is_compiling():
+        return _Span(name, attrs)
+    _between = True
+    return _NULL
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter `name`, and to the innermost open span while a
+    capture records (nothing under torch.compile / torch.export)."""
+    if torch.compiler.is_compiling():
+        return
+    _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+    if torch.autograd.profiler._is_profiler_enabled:
+        st = _stack()
+        if st:
+            st[-1].counts[name] = st[-1].counts.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """The program's counters since the process started: `count`'s, and the
+    two kernels' launch counters."""
+    from ..core.morphology_lanes import phi_tiles
+    from ..ops.spatial_quant import spatial_quantize
+
+    return {**_COUNTERS, "spatial_quantize_launches": spatial_quantize.launches,
+            "phi_tiles_launches": phi_tiles.launches}
+
+
+def _closed(cap: _Capture) -> List[_Span]:
+    done = [r for r in cap.records if r.t1 is not None]
+    if any(r.ev1 is not None for r in done):
+        torch.cuda.synchronize()
+    return done
+
+
+def _stream_ms(r: _Span) -> Optional[float]:
+    return r.ev0.elapsed_time(r.ev1) if r.ev1 is not None else None
+
+
+def span_records() -> List[Dict]:
+    """The closed spans of the latest capture in the order they opened:
+    name, attrs, call id, index, parent index (None for a root), host ms,
+    stream ms (None off the card) and the counts made inside it (not in
+    its children)."""
+    return [{"name": r.name, "attrs": dict(r.attrs), "call": r.call, "index": r.index,
+             "parent": r.parent, "host_ms": (r.t1 - r.t0) * 1e-6,
+             "stream_ms": _stream_ms(r), "counts": dict(r.counts)}
+            for r in _closed(_capture)]
+
+
+def span_summary() -> Dict:
+    """The spans of the latest profiler capture (those recorded since
+    `trace()` began, or since a span last ran with no capture active), by
+    name: `count`, `host_ms`
+    and `stream_ms` (sums; stream None off the card), `self_host_ms` and
+    `self_stream_ms` (less what the span's children cover); by root name:
+    `count` and `counters` (the counts made inside each root span, summed
+    over them) and `counters_per_root` (one dict per root span); `roots`:
+    the number of root spans."""
+    recs = span_records()
+    by_index = {r["index"]: r for r in recs}
+    child_host: Dict[int, float] = {}
+    child_stream: Dict[int, float] = {}
+    for r in recs:
+        p = r["parent"]
+        if p is not None and p in by_index:
+            child_host[p] = child_host.get(p, 0.0) + r["host_ms"]
+            if r["stream_ms"] is not None:
+                child_stream[p] = child_stream.get(p, 0.0) + r["stream_ms"]
+    spans: Dict[str, Dict] = {}
+    root_of: Dict[int, int] = {}
+    per_root: Dict[int, Dict[str, int]] = {}
+    for r in recs:
+        s = spans.setdefault(r["name"], {"count": 0, "host_ms": 0.0, "stream_ms": 0.0,
+                                         "self_host_ms": 0.0, "self_stream_ms": 0.0})
+        s["count"] += 1
+        s["host_ms"] += r["host_ms"]
+        s["self_host_ms"] += r["host_ms"] - child_host.get(r["index"], 0.0)
+        if r["stream_ms"] is None or s["stream_ms"] is None:
+            s["stream_ms"] = s["self_stream_ms"] = None
+        else:
+            s["stream_ms"] += r["stream_ms"]
+            s["self_stream_ms"] += r["stream_ms"] - child_stream.get(r["index"], 0.0)
+        p = r["parent"]
+        root = r["index"] if p is None else root_of.get(p)
+        if root is None:
+            continue   # under a span still open when the summary was read
+        root_of[r["index"]] = root
+        counts = per_root.setdefault(root, {})
+        for k, v in r["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    roots: Dict[str, Dict] = {}
+    for i, counts in per_root.items():
+        entry = roots.setdefault(by_index[i]["name"], {"count": 0, "counters": {},
+                                                        "counters_per_root": []})
+        entry["count"] += 1
+        entry["counters_per_root"].append(counts)
+        for k, v in counts.items():
+            entry["counters"][k] = entry["counters"].get(k, 0) + v
+    return {"spans": spans, "by_root": roots, "roots": len(per_root)}
 
 
 def timed(fn: Callable, *args, iters: int = 50, warmup: int = 3, device=None) -> float:

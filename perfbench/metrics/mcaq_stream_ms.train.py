@@ -1,0 +1,22 @@
+"""Stream ms a train step of the student's MCAQ transform in the training
+forward: the program's spans 'mcaq.analyzer', 'mcaq.mapper' and
+'mcaq.quantize' inside the traced steps' root spans 'train_step'
+(mcaq_yolo_tpu_torch/utils/profiling.py: CUDA events at each span's ends,
+so the card's idle time inside them counts), over those steps.  None where
+the program records no spans."""
+
+NAMES = ("mcaq.analyzer", "mcaq.mapper", "mcaq.quantize")
+ROOT = "train_step"
+
+
+def read(ctx):
+    from mcaq_yolo_tpu_torch.utils import profiling
+
+    if not hasattr(profiling, "span_summary"):
+        return None
+    s = profiling.span_summary()
+    roots = s["by_root"].get(ROOT, {}).get("count", 0)
+    if roots != ctx["steps"]:
+        raise ValueError(f"{roots} '{ROOT}' spans recorded over {ctx['steps']} traced steps")
+    ms = [s["spans"][n]["stream_ms"] for n in NAMES if n in s["spans"]]
+    return None if not ms or None in ms else sum(ms) / roots

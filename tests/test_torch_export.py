@@ -10,7 +10,8 @@ Contracts:
   * saved (`mcaq_yolo.pt2` + graph text), loaded in this process and in a
     fresh one, it is BITWISE equal to the eager `make_inference_fn`
     (boxes, scores, classes, valid, avg_bits) and to the eager NMS keep
-    masks (the loop formulation did not change a keep bit);
+    masks (the loop formulation did not change a keep bit); it holds no
+    profiler op (the program's spans do nothing under torch.export);
   * against the JAX package's `export_inference(...).call` on the same
     weights and images, with `tests/test_torch_slice.py`'s tolerances:
     valid-detection count within +-1 per image, matched boxes within
@@ -71,6 +72,12 @@ def test_graph_holds_three_quant_nodes(exported):
     with torch.no_grad():  # without NMS: three raw maps and avg_bits
         raw = make_inference_fn(exported["model"], with_nms=False)(exported["images"])
     assert len(raw) == 4 and raw[0].shape == (B, IMG // 8, IMG // 8, 64 + NC)
+
+
+def test_graph_holds_no_profiler_op(exported):
+    """The program's spans (`utils/profiling.py`) leave no node behind."""
+    targets = [str(n.target) for n in exported["loaded"].graph.nodes if n.op == "call_function"]
+    assert targets and not [t for t in targets if "profiler" in t or "record_function" in t]
 
 
 def test_loaded_program_bitwise_equals_eager(exported):

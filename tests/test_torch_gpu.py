@@ -43,7 +43,14 @@ the batch size or on its position in the batch, on the warp path (tiles up
 to 8 x 8) and on the block path; the deployed forward launches it once per
 scale and the exported program holds it as 3 nodes; the 'rows' engine
 launches no phi kernel; tiles of 256 to 1024 launch it too, bitwise but for
-a tile whose Otsu bin the plain version's rounded float sums moved."""
+a tile whose Otsu bin the plain version's rounded float sums moved.
+
+The program's spans and counters (`utils/profiling.py`): `host_syncs` over
+one deployed call and over one train step equals the synchronizing
+operations torch's sync debug mode reports there, and repeats exactly; a
+span's stream time covers the device time of the kernels launched inside
+it, and the program's annotations in the profiler's trace match the span
+summary's names and counts."""
 
 import numpy as np
 import pytest
@@ -727,3 +734,142 @@ def test_exported_program_holds_three_phi_nodes(cuda, tmp_path):
         torch.cuda.synchronize()
     assert ml.phi_tiles.launches - before == 3
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+# ---------------------------------------------------------------------------
+# The program's spans and host-sync counter on the card (utils/profiling.py)
+# ---------------------------------------------------------------------------
+
+
+def _sync_warnings(fn):
+    """fn()'s synchronizing CUDA operations as torch's sync debug mode
+    reports them (its own first notice, that the mode is a prototype, left
+    out), and fn's result."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchronizing CUDA operation" in str(w.message) for w in caught), out
+
+
+def _served(cuda):
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+
+    model = MCAQYOLO(num_classes=80, morph_downsample=2, dtype=torch.bfloat16, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(7).integers(0, 256, (4, 256, 256, 3),
+                                                           dtype=np.uint8)).to(cuda)
+    return model, x
+
+
+def _deployed(model, x):
+    from mcaq_yolo_tpu_torch.inference import deployed_program
+
+    with torch.inference_mode():
+        # no gate, so the whole pool enters NMS, its boxes overlap and the
+        # keep loop sweeps several times
+        return deployed_program(model, x, 80, conf_threshold=0.0, max_det=300)
+
+
+@pytest.mark.gpu
+def test_host_syncs_match_the_sync_debug_mode(cuda):
+    """`host_syncs` over one deployed call and over one train step equals
+    the synchronizing operations torch's sync debug mode reports there,
+    and repeats exactly on the same inputs."""
+    from mcaq_yolo_tpu_torch.data.synthetic import synthetic_batches
+    from mcaq_yolo_tpu_torch.models.losses import MCAQYOLOLoss
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+    from mcaq_yolo_tpu_torch.models.yolo import YOLOv8
+    from mcaq_yolo_tpu_torch.train import Optimizer, make_train_step
+    from mcaq_yolo_tpu_torch.utils import profiling
+
+    def counted(fn):
+        before = profiling.counters()
+        warned, _ = _sync_warnings(fn)
+        after = profiling.counters()
+        return warned, {k: after[k] - before.get(k, 0) for k in ("host_syncs", "nms_sweeps")}
+
+    model, x = _served(cuda)
+    _deployed(model, x)  # warm-up
+    calls = [counted(lambda: _deployed(model, x)) for _ in range(2)]
+    for warned, delta in calls:
+        assert delta["host_syncs"] == warned == 3 + 6 + delta["nms_sweeps"]
+    assert calls[0] == calls[1]
+    assert calls[0][1]["nms_sweeps"] >= 2
+
+    batch = synthetic_batches(1, 2, 128, 4, max_boxes=8, boxes_per_image=(3, 6), seed=0)[0]
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    student = MCAQYOLO(num_classes=4, device=cuda, seed=0)
+    step = make_train_step(student, MCAQYOLOLoss(4, 4.0), YOLOv8("yolov8n", 4, device=cuda),
+                           amp_dtype=torch.bfloat16)
+    opt = Optimizer(student, lambda s: 1e-3)
+
+    def one_step():
+        return step(opt, batch, 4.85, 6.87, 0.0, 0.0, 0.5, 1e-4, quantize=True, use_kd=True)
+
+    one_step()  # warm-up: AdamW's state
+    steps = [counted(one_step) for _ in range(2)]
+    for warned, delta in steps:
+        assert delta["host_syncs"] == warned == 3 + 6
+    assert steps[0] == steps[1]
+
+
+@pytest.mark.gpu
+def test_span_stream_time_covers_its_kernels(cuda, tmp_path):
+    """Under `trace()`: the deployed program's outputs are bitwise those of
+    a call without it; each program span's stream time (its CUDA events) is
+    at least the device time the profiler gives the kernels launched inside
+    it, and the trace's program annotations match the summary's names and
+    counts."""
+    import json
+
+    from mcaq_yolo_tpu_torch.utils import profiling
+
+    model, x = _served(cuda)
+    off = _deployed(model, x)
+    with profiling.trace(str(tmp_path)) as d:
+        on = [_deployed(model, x) for _ in range(2)]
+    for a, b in zip(off, on[-1]):   # tracing moves no output
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    records = profiling.span_records()
+    summary = profiling.span_summary()
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    assert json.loads((tmp_path / "spans.json").read_text()) == json.loads(json.dumps(summary))
+    assert d == str(tmp_path)
+
+    ann = {}
+    launches = []
+    device = {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat")
+        if cat == "user_annotation" and e["name"] in summary["spans"]:
+            ann.setdefault(e["name"], []).append(e)
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
+            launches.append(e)
+        elif cat == "kernel":
+            device[e["args"]["correlation"]] = float(e["dur"])
+    assert {n: len(v) for n, v in ann.items()} == {n: v["count"]
+                                                  for n, v in summary["spans"].items()}
+    assert summary["roots"] == 2 and summary["by_root"]["deployed_program"]["count"] == 2
+
+    seen = {}
+    checked = 0
+    for r in records:
+        k = seen.get(r["name"], 0)
+        seen[r["name"]] = k + 1
+        a = sorted(ann[r["name"]], key=lambda e: e["ts"])[k]
+        t0, t1 = float(a["ts"]), float(a["ts"]) + float(a["dur"])
+        busy_us = sum(device.get(e["args"]["correlation"], 0.0) for e in launches
+                      if e["tid"] == a["tid"] and t0 <= float(e["ts"]) <= t1)
+        assert r["stream_ms"] is not None
+        assert r["stream_ms"] * 1e3 >= 0.99 * busy_us - 2.0, (r["name"], r["stream_ms"], busy_us)
+        checked += busy_us > 0
+    assert checked >= 10
