@@ -31,6 +31,20 @@ Phases (any failure exits non-zero and prints no result):
      such tile counted; one launch a call.  Every later path zeroes both
      kernels' launch counts just before it runs and reads them just after
      (one phi launch per scale of every forward that runs the analyzer);
+ 2c. the eval BatchNorm + SiLU kernel (csrc/bn_silu.cu) at every
+     ConvBnSiLU shape of a 640-px forward of YOLOv8n and YOLOv8m at bs 256
+     in bfloat16 (the serving cells) and of YOLOv8m at bs 64 in float32
+     (the KD teacher of the training cell): bitwise against F.batch_norm +
+     F.silu with ATen's channels-last BatchNorm (cuDNN off) on each
+     distinct shape, the largest gap measured (abs and in ulps; abs against
+     the library's default, cuDNN's float32 BatchNorm), then its
+     device ms a forward (the shapes' times summed; each map rewritten in
+     place by back-to-back launches, over 8 distinct copies in turn where
+     a map is smaller than the 50 MB L2 cache), the bytes' bound at 3.35
+     TB/s and its share of it, and `library_ms`, F.batch_norm + F.silu (the
+     yardstick and the plain version; the port calls it off the card);
+     every later path reads the kernel's launches beside the phi kernel's,
+     one a ConvBnSiLU of every eval forward (the KD teacher's in training);
   3. the deployed program: a seeded random MCAQ-YOLOv8n (nc=80, MLP bit
      mapper, softplus) written as a flax msgpack checkpoint + meta, served
      by `Predictor(model_path)` at 640 px in bfloat16 (pool 256, conf 0.25,
@@ -165,8 +179,8 @@ Phases (any failure exits non-zero and prints no result):
      phase 4's bs-256 program; the committed record is put back after.
 
 Output: JSON lines; before the last, the `{"kernels": [...]}` summary
-(spatial_quant and phi_tiles, each with `launches_by_path`); the last line
-is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+(spatial_quant, phi_tiles and bn_silu, each with `launches_by_path`); the
+last line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or outside the repository, it exits 2.
 """
 
@@ -185,6 +199,13 @@ REPLACES = "mcaq_yolo_tpu/ops/pallas_quant.py:247"
 PHI_SOURCE = "mcaq_yolo_tpu_torch/csrc/morph_tiles.cu"
 PHI_REPLACES = "mcaq_yolo_tpu/core/morphology_lanes.py:395"
 PHI_LAUNCHES = {}  # path -> phi_tiles launches in that path's run
+BN_SILU_SOURCE = "mcaq_yolo_tpu_torch/csrc/bn_silu.cu"
+BN_SILU_LAUNCHES = {}  # path -> bn_silu launches in that path's run
+_BN_SILU_BASE = [0]  # the counter `bn_silu` at the last `zero_launches`
+# (variant, dtype, batch) of phase 2c: the serving cells' forwards and the
+# training cell's float32 teacher
+BN_SILU_FORWARDS = (("yolov8n", "bfloat16", 256), ("yolov8m", "bfloat16", 256),
+                    ("yolov8m", "float32", 64))
 SCALES = (("P3", 80, 64, 10), ("P4", 40, 128, 10), ("P5", 20, 256, 5))
 IMG = 640
 
@@ -203,24 +224,66 @@ def check(cond: bool, msg: str) -> None:
 
 
 def zero_launches() -> None:
-    """Both kernels' launch counts set to 0, just before a path runs."""
+    """The kernels' launch counts set to 0 (bn_silu's: its counter noted),
+    just before a path runs."""
     from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+    from mcaq_yolo_tpu_torch.ops import bn_silu
     from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
 
     sq.spatial_quantize.launches = 0
     ml.phi_tiles.launches = 0
+    _BN_SILU_BASE[0] = bn_silu.launches()
 
 
-def phi_launches(path: str, expected=None) -> int:
+def phi_launches(path: str, expected=None, bn=None) -> int:
     """The phi kernel's launches since `zero_launches`, recorded as `path`'s;
-    held to `expected` when given, else to at least one."""
+    held to `expected` when given, else to at least one.  The eval
+    BatchNorm + SiLU kernel's launches since then are recorded beside them,
+    and held to `bn` when given (one a ConvBnSiLU of every eval forward on
+    the card, `conv_bn_silu_modules`)."""
     from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+    from mcaq_yolo_tpu_torch.ops import bn_silu
 
     n = PHI_LAUNCHES[path] = ml.phi_tiles.launches
     check(n == expected if expected is not None else n > 0,
           f"{path}: the phi kernel launched {n} times (expected "
           f"{expected if expected is not None else 'at least 1'})")
+    b = BN_SILU_LAUNCHES[path] = bn_silu.launches() - _BN_SILU_BASE[0]
+    check(bn is None or b == bn,
+          f"{path}: the bn_silu kernel launched {b} times (expected {bn})")
     return n
+
+
+def conv_bn_silu_modules(model) -> int:
+    """ConvBnSiLU modules in `model`: the bn_silu launches of one eval
+    forward on the card."""
+    from mcaq_yolo_tpu_torch.models.layers import ConvBnSiLU
+
+    return sum(isinstance(m, ConvBnSiLU) for m in model.modules())
+
+
+def conv_bn_silu_shapes(variant: str, batch: int, img_size: int, num_classes: int = 80):
+    """(N, C, H, W) of every ConvBnSiLU output in a YOLOv8 `variant`'s
+    forward on (batch, img_size, img_size, 3) images, in forward order: the
+    maps the bn_silu kernel runs over on the card (traced on the meta
+    device, so nothing is computed)."""
+    import torch
+
+    from mcaq_yolo_tpu_torch.models.layers import ConvBnSiLU
+    from mcaq_yolo_tpu_torch.models.yolo import YOLOv8
+
+    model = YOLOv8(variant, num_classes, device="cpu").to("meta")
+    shapes = []
+    hooks = [m.register_forward_hook(lambda m, i, out: shapes.append(tuple(out.shape)))
+             for m in model.modules() if isinstance(m, ConvBnSiLU)]
+    try:
+        with torch.no_grad():
+            model(torch.empty((batch, img_size, img_size, 3), dtype=torch.uint8,
+                              device="meta"))
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
 
 
 # ---------------------------------------------------------------------------
@@ -519,6 +582,108 @@ def phase_phi_vs_plain(device) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2c
+# ---------------------------------------------------------------------------
+
+
+def phase_bn_silu(device, img: int = IMG) -> list:
+    """The eval BatchNorm + SiLU kernel at every ConvBnSiLU shape of the
+    forwards of BN_SILU_FORWARDS: held bitwise to F.batch_norm + F.silu on
+    each distinct shape, then timed (module docstring, 2c).  One row a
+    forward."""
+    from collections import Counter
+
+    import torch
+
+    from mcaq_yolo_tpu_torch.ops import bn_silu as bs
+    from mcaq_yolo_tpu_torch.utils.cuda_timing import (BN_SILU_OPS_PER_ELEMENT, COPIES,
+                                                       L2_BYTES, bn_silu_bytes, bound_ms,
+                                                       cuda_ms)
+
+    def ordered(t):  # sign-magnitude bits -> integers in the floats' order
+        i = t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32).long()
+        return torch.where(i < 0, -(i & (2 ** (8 * t.element_size() - 1) - 1)), i)
+
+    eps = 1e-3
+    rows = []
+    for variant, dtype_name, batch in BN_SILU_FORWARDS:
+        dtype = getattr(torch, dtype_name)
+        ibits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        shapes = Counter(conv_bn_silu_shapes(variant, batch, img))
+        row = {"variant": variant, "dtype": dtype_name, "batch": batch,
+               "modules": sum(shapes.values()), "distinct_shapes": len(shapes), "ms": 0.0,
+               "library_ms": 0.0, "bytes": 0, "ops": 0, "max_abs_err": 0.0,
+               "worst_ulps": 0, "library_max_abs_err": 0.0}
+        for k, (shape, n) in enumerate(sorted(shapes.items())):
+            C = shape[1]
+            g = torch.Generator(device=device).manual_seed(k)
+            x = (torch.randn(shape, generator=g, device=device) * 3.0).to(dtype)
+            x = x.contiguous(memory_format=torch.channels_last)
+            w = torch.rand(C, generator=g, device=device) + 0.5
+            b = torch.randn(C, generator=g, device=device)
+            m = torch.randn(C, generator=g, device=device)
+            v = torch.rand(C, generator=g, device=device) * 2.0 + 0.05
+            y = x.clone(memory_format=torch.channels_last)
+            before = bs.launches()
+            torch.ops.mcaq.bn_silu(y, w, b, m, v, eps)
+            with torch.backends.cudnn.flags(enabled=False):  # ATen's channels-last kernel
+                ref = bs.bn_silu_torch(x, w, b, m, v, eps)
+            lib = bs.bn_silu_torch(x, w, b, m, v, eps)  # cuDNN's where it takes it
+            torch.cuda.synchronize()
+            check(bs.launches() == before + 1, f"bn_silu {shape}: no launch counted")
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     float((y.float() - ref.float()).abs().max()))
+            row["library_max_abs_err"] = max(row["library_max_abs_err"],
+                                             float((y.float() - lib.float()).abs().max()))
+            row["worst_ulps"] = max(row["worst_ulps"], int((ordered(y) - ordered(ref)).abs().max()))
+            check(torch.equal(y.view(ibits), ref.view(ibits)),
+                  f"bn_silu {variant} {shape} {dtype_name}: not bitwise F.batch_norm + "
+                  f"F.silu ({row['worst_ulps']} ulps apart)")
+            del y, ref, lib
+            # timed in place with BatchNorm's initial statistics (w = 1, b = 0,
+            # mean 0, var 1), so the repeated SiLU keeps every value finite; a
+            # map under the L2 cache's size is timed over COPIES distinct
+            # copies in turn, so no launch finds its map in the cache
+            copies = COPIES if x.numel() * x.element_size() < L2_BYTES else 1
+            works = [x.clone(memory_format=torch.channels_last) for _ in range(copies)]
+            one, zero = torch.ones_like(w), torch.zeros_like(w)
+            ms = cuda_ms(lambda i: torch.ops.mcaq.bn_silu(works[i % copies], one, zero, zero,
+                                                          one, eps),
+                         reps=5, inner=max(copies, 5), warmup=1, device_only=True)
+            library = cuda_ms(lambda i: bs.bn_silu_torch(works[i % copies], w, b, m, v, eps),
+                              reps=5, inner=max(copies, 5), warmup=1, device_only=True)
+            del works, x
+            row["ms"] += n * ms
+            row["library_ms"] += n * library
+            numel = shape[0] * C * shape[2] * shape[3]
+            row["bytes"] += n * bn_silu_bytes(numel, dtype.itemsize, C)
+            row["ops"] += n * numel * BN_SILU_OPS_PER_ELEMENT
+        torch.cuda.empty_cache()
+        row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["ops"])
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["library_share_of_bound"] = row["bound_ms"] / row["library_ms"]
+        emit({"phase": "bn_silu", **row})
+        rows.append(row)
+    return rows
+
+
+def bn_silu_kernel_entry(rows) -> dict:
+    """The eval BatchNorm + SiLU kernel's entry of the `kernels` line: its
+    device time a YOLOv8n bs-256 forward (phase 2c), that work's bound, the
+    largest gap to F.batch_norm + F.silu that phase 2c measured on any
+    forward, and its launches on every path (the deployed one as
+    `launches`).  The plain version is the library's composition, so
+    `plain_ms` is `library_ms`."""
+    (n,) = [r for r in rows if r["variant"] == "yolov8n"]
+    return {"name": "bn_silu", "route": "cuda", "source": BN_SILU_SOURCE, "replaces": None,
+            "launches": BN_SILU_LAUNCHES.get("deployed"),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": n["ms"], "plain_ms": n["library_ms"], "bound_ms": n["bound_ms"],
+            "bound_by": n["bound_by"], "library_ms": n["library_ms"],
+            "launches_by_path": dict(BN_SILU_LAUNCHES)}
+
+
+# ---------------------------------------------------------------------------
 # Phase 3
 # ---------------------------------------------------------------------------
 
@@ -630,7 +795,10 @@ def phase_deployed_program(device, dtype, workdir: Path):
     wall = time.perf_counter() - t0
     launches = sq.spatial_quantize.launches
     forwards = 3
-    phi = phi_launches("deployed", 3 * forwards)  # one per scale per forward
+    # one phi launch per scale per forward, one bn_silu per ConvBnSiLU
+    phi = phi_launches("deployed", 3 * forwards,
+                       bn=conv_bn_silu_modules(pred.model) * forwards)
+    bn = BN_SILU_LAUNCHES["deployed"]
 
     check(len(results) == len(images), "predict_batch dropped images")
     bits = np.concatenate([r["bit_map"].ravel() for r in results])
@@ -645,7 +813,7 @@ def phase_deployed_program(device, dtype, workdir: Path):
           f"spatial_quant launched {launches} times in {forwards} forwards (expected 3 each)")
     emit({"phase": "deployed_program", "images": len(images), "batches": forwards,
           "batch_size": 8, "img_size": IMG, "dtype": str(dtype), "wall_s": round(wall, 3),
-          "launches": {"spatial_quant": launches, "phi_tiles": phi},
+          "launches": {"spatial_quant": launches, "phi_tiles": phi, "bn_silu": bn},
           "avg_bits": [round(r["avg_bits"], 4) for r in results[::8]],
           "bit_widths_seen": sorted(float(b) for b in np.unique(bits)),
           "detections": sum(len(r["detections"]) for r in results),
@@ -993,7 +1161,8 @@ def phase_training(device, workdir: Path, img: int = IMG, batch: int = TRAIN_BAT
         torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_launches = sq.spatial_quantize.launches
-    train_phi = phi_launches("training", 3 * 3)  # 3 one-batch epochs, 3 scales
+    # 3 one-batch epochs, 3 scales; the float32 KD teacher's eval forward a step
+    train_phi = phi_launches("training", 3 * 3, bn=3 * conv_bn_silu_modules(trainer.teacher))
     grads = _grad_groups(trainer.model)
     grad_norms = {k: float(v.norm()) for k, v in grads.items()}
     num_batches = [int(q.num_batches) for q in trainer.model.quantizers]
@@ -1021,7 +1190,7 @@ def phase_training(device, workdir: Path, img: int = IMG, batch: int = TRAIN_BAT
     if device.type == "cuda":
         torch.cuda.synchronize()
     calib_launches = sq.spatial_quantize.launches
-    calib_phi = phi_launches("calibration", 3 * 2)
+    calib_phi = phi_launches("calibration", 3 * 2, bn=2 * conv_bn_silu_modules(trainer.model))
     stats = [(int(q.num_batches), bool(q.frozen)) for q in trainer.model.quantizers]
     emit({"phase": "calibration", "batches": 2, "quantizer_state": stats,
           "launches": {"spatial_quant": calib_launches, "phi_tiles": calib_phi}})
@@ -1039,7 +1208,7 @@ def phase_training(device, workdir: Path, img: int = IMG, batch: int = TRAIN_BAT
     if device.type == "cuda":
         torch.cuda.synchronize()
     serve_launches = sq.spatial_quantize.launches
-    serve_phi = phi_launches("trained_serving", 3)
+    serve_phi = phi_launches("trained_serving", 3, bn=conv_bn_silu_modules(pred.model))
     emit({"phase": "trained_serving", "images": len(results), "batch_size": 8,
           "avg_bits": round(results[0]["avg_bits"], 4),
           "detections": sum(len(r["detections"]) for r in results),
@@ -1326,7 +1495,7 @@ def phase_train_from_disk(device, workdir: Path, gpu: str, img: int = IMG,
     rescored = trainer._compute_complexity_scores(use_cache=False)
     score_s = time.perf_counter() - t0
     # compute_dataset_complexity's batches of 8, one launch (64 x 64 tiles) each
-    phi_launches("eq8_scoring", -(-DISK_TRAIN // 8))
+    phi_launches("eq8_scoring", -(-DISK_TRAIN // 8), bn=0)
     check(np.array_equal(rescored, trainer.complexity_scores), "Eq.(8) scores not deterministic")
     fw0 = trainer.model.complexity_analyzer.feature_weights.clone()
 
@@ -1419,7 +1588,7 @@ def phase_train_from_disk(device, workdir: Path, gpu: str, img: int = IMG,
     results = pred.predict_batch(images, batch_size=8)
     torch.cuda.synchronize()
     serve_launches = sq.spatial_quantize.launches
-    serve_phi = phi_launches("resumed_serving", 3)
+    serve_phi = phi_launches("resumed_serving", 3, bn=conv_bn_silu_modules(pred.model))
     emit({"phase": "resumed_serving", "gpu": gpu, "images": len(results),
           "avg_bits": round(results[0]["avg_bits"], 4),
           "launches": {"spatial_quant": serve_launches, "phi_tiles": serve_phi}})
@@ -1662,7 +1831,8 @@ def phase_deploy(device, workdir: Path, gpu: str, sd, disk_dir: Path):
         _, calib_s = _synced_s(lambda: calibrate(model, calib,
                                                  num_images=CALIB_BATCHES * CALIB_BATCH))
         n = sq.spatial_quantize.launches
-        n_phi = phi_launches(f"calibration_{mode}", 3 * CALIB_BATCHES)
+        n_phi = phi_launches(f"calibration_{mode}", 3 * CALIB_BATCHES,
+                             bn=CALIB_BATCHES * conv_bn_silu_modules(model))
         peak = torch.cuda.max_memory_allocated(device) / 1e9
         state = [(int(q.num_batches), bool(q.frozen)) for q in model.quantizers]
         check(n == 3 * CALIB_BATCHES, f"{mode}: calibration launched the kernel {n} times "
@@ -1698,7 +1868,7 @@ def phase_deploy(device, workdir: Path, gpu: str, sd, disk_dir: Path):
     results = pred.predict_batch(images, batch_size=8)
     torch.cuda.synchronize()
     launches["deployed_serving"] = sq.spatial_quantize.launches
-    phi_launches("deployed_serving", 3)
+    phi_launches("deployed_serving", 3, bn=conv_bn_silu_modules(pred.model))
     check(launches["deployed_serving"] == 3, f"serving launched the kernel "
                                              f"{launches['deployed_serving']} times (expected 3)")
     for r in results:
@@ -1727,7 +1897,7 @@ def phase_deploy(device, workdir: Path, gpu: str, sd, disk_dir: Path):
         out = program(xb)
         torch.cuda.synchronize()
         launches["exported_program"] = sq.spatial_quantize.launches
-        phi_launches("exported_program", 3)
+        phi_launches("exported_program", 3, bn=conv_bn_silu_modules(model))
     same = [bool(torch.equal(a, b)) for a, b in zip(out, ref)]
     with torch.no_grad():
         loaded_ms = cuda_ms(lambda k: program(xb))
@@ -1914,7 +2084,8 @@ def phase_evidence_scripts(device, workdir: Path, gpu: str):
         own = aux["bit_map"]
         ext, n_own = launched(lambda: m3_permutation.apply_external_bit_maps(model, x, own))
         check(n_own == 3, f"the external-map forward launched {n_own} times (expected 3)")
-        phi_launches("external_bit_maps", 0)  # the maps replace the analyzer
+        # the maps replace the analyzer; the network runs once
+        phi_launches("external_bit_maps", 0, bn=conv_bn_silu_modules(model))
         check(all(torch.equal(a, b) for a, b in zip(raw, ext)),
               "apply_external_bit_maps with the model's own maps differs from its forward")
 
@@ -2860,9 +3031,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if not all((ROOT / src).is_file() for src in (KERNEL_SOURCE, PHI_SOURCE)):
-        print(f"chip_smoke: {KERNEL_SOURCE} or {PHI_SOURCE} not found; run from the "
-              "repository", file=sys.stderr)
+    if not all((ROOT / src).is_file() for src in (KERNEL_SOURCE, PHI_SOURCE, BN_SILU_SOURCE)):
+        print(f"chip_smoke: {KERNEL_SOURCE}, {PHI_SOURCE} or {BN_SILU_SOURCE} not found; "
+              "run from the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     device = torch.device("cuda")
@@ -2882,6 +3053,8 @@ def main() -> int:
     lap("2_kernel_vs_plain")
     phi_worst = phase_phi_vs_plain(device)
     lap("2b_phi_vs_plain")
+    bn_rows = phase_bn_silu(device)
+    lap("2c_bn_silu")
     scratch = ROOT / "build"  # gitignored; the run writes nothing outside the checkout
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
@@ -2923,7 +3096,7 @@ def main() -> int:
         "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
         "library_ms": None,
         "launches_by_path": dict(deployed=launches, **path_launches),
-    }, phi_kernel_entry(phi_rows, phi_worst)]})
+    }, phi_kernel_entry(phi_rows, phi_worst), bn_silu_kernel_entry(bn_rows)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

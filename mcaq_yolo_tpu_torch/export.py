@@ -8,8 +8,11 @@ The spatial quantizer is the registered op `mcaq::spatial_quantize`
 (`core/morphology_lanes.py`, with the model's default 'lanes' engine), so
 the exported graph carries each as a node, three per forward, as the
 reference's StableHLO carries its quantizer: on CUDA the loaded program
-launches the hand-written kernels.  Importing this module registers both
-ops, so a fresh process can load a saved artifact.
+launches the hand-written kernels.  A model exported on CUDA also carries
+each ConvBnSiLU's eval BatchNorm + SiLU as a node of the op `mcaq::bn_silu`
+(`ops/bn_silu.py`; on the CPU they stay `batch_norm` and `silu`).
+Importing this module registers the three ops, so a fresh process can load
+a saved artifact.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch.nn as nn
 from .core import morphology_lanes  # noqa: F401  (registers mcaq::phi_tiles)
 from .models.mcaq_yolo import MCAQYOLO
 from .models.yolo import decode_and_nms
-from .ops import spatial_quant  # noqa: F401  (registers mcaq::spatial_quantize)
+from .ops import bn_silu, spatial_quant  # noqa: F401  (register mcaq::bn_silu, ::spatial_quantize)
 
 ARTIFACT = "mcaq_yolo.pt2"
 GRAPH_TEXT = "mcaq_yolo.graph.txt"
@@ -105,3 +108,8 @@ def count_quant_nodes(exported: torch.export.ExportedProgram) -> int:
 def count_phi_nodes(exported: torch.export.ExportedProgram) -> int:
     """How many `mcaq::phi_tiles` nodes an exported graph holds."""
     return _count_nodes(exported, torch.ops.mcaq.phi_tiles.default)
+
+
+def count_bn_silu_nodes(exported: torch.export.ExportedProgram) -> int:
+    """How many `mcaq::bn_silu` nodes an exported graph holds."""
+    return _count_nodes(exported, torch.ops.mcaq.bn_silu.default)

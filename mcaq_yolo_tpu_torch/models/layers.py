@@ -8,7 +8,9 @@ that `weights_io` maps the flax variable tree one to one.
 
 Every forward takes `training` (default False), as the reference's modules
 do: BatchNorm then normalizes with the batch's statistics and updates its
-running ones by flax's rule (`batch_norm.py`).
+running ones by flax's rule (`batch_norm.py`).  In eval on the card,
+ConvBnSiLU's BatchNorm and SiLU are one in-place pass of the kernel
+`csrc/bn_silu.cu` (`ops/bn_silu.py`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 
 from .. import initializers as init
 from ..batch_norm import BatchNorm2d
+from ..ops import bn_silu
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch convention; flax momentum 0.97
@@ -29,7 +32,11 @@ class ConvBnSiLU(nn.Module):
 
     The convolution runs in its weight's dtype (bfloat16 on the deployed
     path) or in autocast's (bfloat16 training with float32 weights);
-    BatchNorm keeps float32 statistics and affine parameters."""
+    BatchNorm keeps float32 statistics and affine parameters.  In eval,
+    where the kernel takes the convolution's output (`bn_silu.takes`: on
+    the card, nothing to differentiate), BatchNorm and SiLU are one pass of
+    it over that output, in place; otherwise `F.batch_norm` then
+    `F.silu`."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int = 1, stride: int = 1,
                  act: bool = True):
@@ -44,7 +51,10 @@ class ConvBnSiLU(nn.Module):
         self.BatchNorm_0.reset_parameters()
 
     def forward(self, x, training: bool = False):
-        x = self.BatchNorm_0(self.Conv_0(x), training)
+        x = self.Conv_0(x)
+        if self.act and not training and bn_silu.takes(x, self.BatchNorm_0):
+            return bn_silu.bn_silu_(x, self.BatchNorm_0)
+        x = self.BatchNorm_0(x, training)
         return F.silu(x) if self.act else x
 
 

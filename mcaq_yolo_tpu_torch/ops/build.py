@@ -36,15 +36,16 @@ def build_dir(root: Path) -> Path:
 
 
 BUILD_DIR = build_dir(Path(__file__).resolve().parents[2])
-KERNELS = ("spatial_quant", "morph_tiles")  # CUDA sources, built by nvcc
+KERNELS = ("spatial_quant", "morph_tiles", "bn_silu")  # CUDA sources, built by nvcc
 HOST_LIBRARIES = ("dataio",)  # C++ sources, built by g++
 
-# each kernel's own flags go between the target and the link flags; both
-# kernels are held bitwise to plain versions that round after every f32
-# operation, so neither may contract a multiply and an add into an FMA
+# each kernel's own flags go between the target and the link flags; every
+# kernel is held bitwise to a plain version that rounds after every f32
+# operation, so none may contract a multiply and an add into an FMA
 NVCC_TARGET = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 NVCC_LINK = ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNEL_FLAGS = {"spatial_quant": ("-fmad=false",), "morph_tiles": ("--fmad=false",)}
+KERNEL_FLAGS = {"spatial_quant": ("-fmad=false",), "morph_tiles": ("--fmad=false",),
+                "bn_silu": ("--fmad=false",)}
 # spatial_quant's flags, unchanged since its first build (its library hash)
 NVCC_FLAGS = NVCC_TARGET + KERNEL_FLAGS["spatial_quant"] + NVCC_LINK
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")

@@ -17,9 +17,13 @@ FP32_OPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores
 BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 # per element: divide, add, rint, 2 clamps, subtract, multiply, mask multiply
 QUANT_OPS_PER_ELEMENT = 8
+# per element of eval BatchNorm + SiLU: subtract, multiply, multiply-add (2),
+# exp, add, divide
+BN_SILU_OPS_PER_ELEMENT = 7
 # distinct copies of a kernel's inputs cycled in one timed round: at the
 # yolov8n scales their working set exceeds the 50 MB L2
 COPIES = 8
+L2_BYTES = 50 * 2**20  # H100 SXM L2 cache
 # ~10 ms at the H100's clocks: longer than the host needs to queue one
 # timed round of launches
 SLEEP_CYCLES = 20_000_000
@@ -74,6 +78,13 @@ def quant_bytes(x, bit_map, mask) -> int:
     C = x.shape[-1]
     n = 2 * x.numel() * x.element_size() + bit_map.numel() * 4 + 2 * C * 4
     return n + (mask.numel() * 4 if mask is not None else 0)
+
+
+def bn_silu_bytes(numel: int, element_size: int, channels: int) -> int:
+    """Bytes one eval BatchNorm + SiLU pass over a map must move: the map
+    read once and written once, the four per-channel float32 vectors read
+    once."""
+    return 2 * numel * element_size + 4 * channels * 4
 
 
 def bound_ms(n_bytes: int, n_ops: int):

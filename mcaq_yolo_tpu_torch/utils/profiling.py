@@ -121,7 +121,9 @@ def trace(log_dir: Optional[str] = None):
 #                a span `sync.<site>`.  Counted at the site on any device,
 #                so a CPU run counts the sites a card would block at.
 #   nms_sweeps   the keep sweeps of `ops/nms.py:keep_fixed_point`.
-# The kernels' launch counters stay where they are
+#   bn_silu      the launches of the eval BatchNorm + SiLU kernel
+#                (`ops/bn_silu.py`), one a ConvBnSiLU on the card in eval.
+# The two older kernels' launch counters stay where they are
 # (`spatial_quantize.launches`, `phi_tiles.launches`); `counters()` reports
 # them beside these.
 
