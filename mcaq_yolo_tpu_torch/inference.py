@@ -313,7 +313,9 @@ def main(argv=None):
                         help="NMS candidate-pool size (default: auto from the conf gate)")
     parser.add_argument("--img-size", type=int, default=640)
     parser.add_argument("--num-classes", type=int, default=80)
-    parser.add_argument("--variant", default="yolov8n")
+    parser.add_argument("--variant", default="yolov8n",
+                        help="yolov8n-x or yolo11n-x, for a checkpoint without meta "
+                             "(default: the checkpoint's meta['variant'])")
     parser.add_argument("--output", default=None, help="JSON dump path")
     parser.add_argument("--visualize", action="store_true")
     parser.add_argument("--output-dir", default="outputs/infer")

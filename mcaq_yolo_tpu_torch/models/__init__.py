@@ -1,5 +1,5 @@
-"""YOLOv8 model family, MCAQ assembly and detection loss (exports resolved
-at first use)."""
+"""YOLOv8 and YOLO11 model families, MCAQ assembly and detection loss
+(exports resolved at first use)."""
 
 from .._lazy import lazy_exports
 
@@ -8,9 +8,18 @@ __getattr__, __dir__ = lazy_exports(__name__, {
     "C2f": ".layers",
     "SPPF": ".layers",
     "Bottleneck": ".layers",
+    "C3k": ".layers",
+    "C3k2": ".layers",
+    "Attention": ".layers",
+    "PSABlock": ".layers",
+    "C2PSA": ".layers",
+    "SeparableConvBnSiLU": ".layers",
     "YOLOv8Backbone": ".yolo",
     "YOLOv8Neck": ".yolo",
+    "YOLO11Backbone": ".yolo",
+    "YOLO11Neck": ".yolo",
     "DetectHead": ".yolo",
+    "FAMILIES": ".yolo",
     "YOLOv8": ".yolo",
     "VARIANTS": ".yolo",
     "MCAQYOLO": ".mcaq_yolo",

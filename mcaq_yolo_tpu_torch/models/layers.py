@@ -1,5 +1,7 @@
 """
-YOLOv8 building blocks (port of `mcaq_yolo_tpu/models/layers.py:25-143`).
+YOLOv8 building blocks (port of `mcaq_yolo_tpu/models/layers.py:25-143`)
+and YOLO11's (Ultralytics `ultralytics/nn/modules/block.py`: C3k, C3k2,
+Attention, PSABlock, C2PSA; the Detect head's depthwise class branch).
 
 Tensors are NCHW in torch.channels_last memory, so the channel axis is the
 contiguous one, as in the reference's NHWC.  Submodule names follow the
@@ -11,6 +13,10 @@ do: BatchNorm then normalizes with the batch's statistics and updates its
 running ones by flax's rule (`batch_norm.py`).  In eval on the card,
 ConvBnSiLU's BatchNorm and SiLU are one in-place pass of the kernel
 `csrc/bn_silu.cu` (`ops/bn_silu.py`).
+
+YOLO11's attention records the span 'psa.attention' and the counter
+`psa_attention` (one an attention evaluated), C2PSA the span 'model.psa'
+with the attribute `tokens` (`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -22,13 +28,15 @@ import torch.nn.functional as F
 from .. import initializers as init
 from ..batch_norm import BatchNorm2d
 from ..ops import bn_silu
+from ..utils.profiling import count, span
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch convention; flax momentum 0.97
 
 
 class ConvBnSiLU(nn.Module):
-    """Conv2d (symmetric k//2 padding, no bias) + BatchNorm(eps 1e-3) + SiLU.
+    """Conv2d (symmetric k//2 padding, no bias, `groups`) + BatchNorm(eps
+    1e-3) + SiLU (`act`; without it ConvBn).
 
     The convolution runs in its weight's dtype (bfloat16 on the deployed
     path) or in autocast's (bfloat16 training with float32 weights);
@@ -39,9 +47,10 @@ class ConvBnSiLU(nn.Module):
     `F.silu`."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int = 1, stride: int = 1,
-                 act: bool = True):
+                 act: bool = True, groups: int = 1):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(c_in, c_out, kernel, stride, kernel // 2, bias=False)
+        self.Conv_0 = nn.Conv2d(c_in, c_out, kernel, stride, kernel // 2, bias=False,
+                                groups=groups)
         self.BatchNorm_0 = BatchNorm2d(c_out, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
 
@@ -83,18 +92,147 @@ class C2f(nn.Module):
         super().__init__()
         self.hidden = int(c_out * expansion)
         self.ConvBnSiLU_0 = ConvBnSiLU(c_in, 2 * self.hidden, 1)
-        self.n = n
+        self.blocks = []
         for i in range(n):
-            self.add_module(f"Bottleneck_{i}",
-                            Bottleneck(self.hidden, self.hidden, shortcut, 1.0))
+            kind, block = self.block(shortcut)
+            self.blocks.append(f"{kind}_{i}")
+            self.add_module(self.blocks[-1], block)
         self.ConvBnSiLU_1 = ConvBnSiLU((2 + n) * self.hidden, c_out, 1)
+
+    def block(self, shortcut: bool):
+        """(name, module) of one inner block."""
+        return "Bottleneck", Bottleneck(self.hidden, self.hidden, shortcut, 1.0)
 
     def forward(self, x, training: bool = False):
         y = self.ConvBnSiLU_0(x, training)
         parts = [y[:, :self.hidden], y[:, self.hidden:]]
-        for i in range(self.n):
-            parts.append(getattr(self, f"Bottleneck_{i}")(parts[-1], training))
+        for name in self.blocks:
+            parts.append(self._modules[name](parts[-1], training))
         return self.ConvBnSiLU_1(torch.cat(parts, dim=1), training)
+
+
+class C3k(nn.Module):
+    """CSP bottleneck with 3 convolutions and 3x3 bottlenecks: cv1 -> n
+    Bottlenecks (expansion 1.0), concat with cv2 (beside them) -> cv3."""
+
+    def __init__(self, c_in: int, c_out: int, n: int = 2, shortcut: bool = True,
+                 expansion: float = 0.5):
+        super().__init__()
+        hidden = int(c_out * expansion)
+        self.ConvBnSiLU_0 = ConvBnSiLU(c_in, hidden, 1)
+        self.ConvBnSiLU_1 = ConvBnSiLU(c_in, hidden, 1)
+        self.n = n
+        for i in range(n):
+            self.add_module(f"Bottleneck_{i}", Bottleneck(hidden, hidden, shortcut, 1.0))
+        self.ConvBnSiLU_2 = ConvBnSiLU(2 * hidden, c_out, 1)
+
+    def forward(self, x, training: bool = False):
+        y = self.ConvBnSiLU_0(x, training)
+        for i in range(self.n):
+            y = getattr(self, f"Bottleneck_{i}")(y, training)
+        return self.ConvBnSiLU_2(torch.cat([y, self.ConvBnSiLU_1(x, training)], dim=1),
+                                 training)
+
+
+class C3k2(C2f):
+    """YOLO11's C2f: the inner blocks are C3k (two 3x3 Bottlenecks) with
+    `c3k`, else Bottlenecks of expansion 0.5; the residual is on."""
+
+    def __init__(self, c_in: int, c_out: int, n: int = 1, c3k: bool = False,
+                 expansion: float = 0.5, shortcut: bool = True):
+        self.c3k = c3k
+        super().__init__(c_in, c_out, n, shortcut, expansion)
+
+    def block(self, shortcut: bool):
+        if self.c3k:
+            return "C3k", C3k(self.hidden, self.hidden, 2, shortcut)
+        return "Bottleneck", Bottleneck(self.hidden, self.hidden, shortcut, 0.5)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention over all H * W positions.  `qkv` (1x1
+    ConvBn) holds per head [q (key_dim), k (key_dim), v (head_dim)]
+    channels; head_dim = c / heads, key_dim = head_dim * attn_ratio.
+    out = proj(v softmax(q^T k key_dim^-0.5)^T + pe(v)), `pe` a depthwise
+    3x3 ConvBn, `proj` a 1x1 ConvBn.  The products run in the input's dtype
+    (`F.scaled_dot_product_attention`)."""
+
+    def __init__(self, c: int, heads: int, attn_ratio: float = 0.5):
+        super().__init__()
+        self.heads = heads
+        self.head_dim = c // heads
+        self.key_dim = int(self.head_dim * attn_ratio)
+        self.scale = self.key_dim ** -0.5
+        self.qkv = ConvBnSiLU(c, c + 2 * self.key_dim * heads, 1, act=False)
+        self.proj = ConvBnSiLU(c, c, 1, act=False)
+        self.pe = ConvBnSiLU(c, c, 3, act=False, groups=c)
+
+    def forward(self, x, training: bool = False):
+        B, C, H, W = x.shape
+        with span("psa.attention"):
+            count("psa_attention")
+            # (B, H*W, heads, 2 key_dim + head_dim): a view of channels-last memory
+            qkv = self.qkv(x, training).permute(0, 2, 3, 1).reshape(
+                B, H * W, self.heads, 2 * self.key_dim + self.head_dim)
+            q, k, v = qkv.transpose(1, 2).split(
+                [self.key_dim, self.key_dim, self.head_dim], dim=-1)
+            o = F.scaled_dot_product_attention(q, k, v, scale=self.scale)
+
+            def to_map(t):  # (B, heads, H*W, d) -> NCHW in channels-last memory
+                return t.transpose(1, 2).reshape(B, H, W, C).permute(0, 3, 1, 2)
+
+            return self.proj(to_map(o) + self.pe(to_map(v), training), training)
+
+
+class PSABlock(nn.Module):
+    """x + attention(x), then x + ffn(x): a 1x1 ConvBnSiLU to 2c and a 1x1
+    ConvBn back."""
+
+    def __init__(self, c: int, heads: int, attn_ratio: float = 0.5):
+        super().__init__()
+        self.Attention_0 = Attention(c, heads, attn_ratio)
+        self.ConvBnSiLU_0 = ConvBnSiLU(c, 2 * c, 1)
+        self.ConvBnSiLU_1 = ConvBnSiLU(2 * c, c, 1, act=False)
+
+    def forward(self, x, training: bool = False):
+        x = x + self.Attention_0(x, training)
+        return x + self.ConvBnSiLU_1(self.ConvBnSiLU_0(x, training), training)
+
+
+class C2PSA(nn.Module):
+    """cv1 -> split [:h], [h:] -> n PSABlocks (heads h // 64) on the second
+    half -> concat -> cv2; h = c / 2.  One span 'model.psa' (attribute
+    `tokens`: H * W)."""
+
+    def __init__(self, c: int, n: int = 1):
+        super().__init__()
+        self.hidden = c // 2
+        self.ConvBnSiLU_0 = ConvBnSiLU(c, 2 * self.hidden, 1)
+        self.n = n
+        for i in range(n):
+            self.add_module(f"PSABlock_{i}", PSABlock(self.hidden, self.hidden // 64))
+        self.ConvBnSiLU_1 = ConvBnSiLU(2 * self.hidden, c, 1)
+
+    def forward(self, x, training: bool = False):
+        with span("model.psa", tokens=x.shape[2] * x.shape[3]):
+            y = self.ConvBnSiLU_0(x, training)
+            a, b = y[:, :self.hidden], y[:, self.hidden:]
+            for i in range(self.n):
+                b = getattr(self, f"PSABlock_{i}")(b, training)
+            return self.ConvBnSiLU_1(torch.cat([a, b], dim=1), training)
+
+
+class SeparableConvBnSiLU(nn.Module):
+    """A depthwise 3x3 ConvBnSiLU, then a 1x1 ConvBnSiLU to `c_out`: one
+    stage of YOLO11's Detect class branch."""
+
+    def __init__(self, c_in: int, c_out: int):
+        super().__init__()
+        self.ConvBnSiLU_0 = ConvBnSiLU(c_in, c_in, 3, groups=c_in)
+        self.ConvBnSiLU_1 = ConvBnSiLU(c_in, c_out, 1)
+
+    def forward(self, x, training: bool = False):
+        return self.ConvBnSiLU_1(self.ConvBnSiLU_0(x, training), training)
 
 
 class SPPF(nn.Module):

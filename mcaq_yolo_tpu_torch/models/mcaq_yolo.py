@@ -1,9 +1,9 @@
 """
 MCAQ-YOLO assembly (port of `mcaq_yolo_tpu/models/mcaq_yolo.py:36-171`):
-YOLOv8 with tile-wise mixed-precision quantization of the backbone's
-C3/C4/C5 outputs before the neck.  One complexity analyzer and one bit
-mapper are shared across scales; each scale has its own quantizer (own
-channel count, own soft mask).
+a YOLOv8 or YOLO11 (`models/yolo.py` families) with tile-wise
+mixed-precision quantization of the backbone's C3/C4/C5 outputs before the
+neck.  One complexity analyzer and one bit mapper are shared across scales;
+each scale has its own quantizer (own channel count, own soft mask).
 
 `forward(training=True)` is the training forward: BatchNorm on batch
 statistics, continuous bit maps, the quantizers' fractional compose with
@@ -38,9 +38,9 @@ from ..device import DeviceLike, resolve_device
 from ..parallel.mesh import all_mean
 from ..utils.profiling import span
 from .yolo import (
-    DetectHead,
-    YOLOv8Backbone,
-    YOLOv8Neck,
+    FEATURE_LAYERS,
+    build_network,
+    family,
     images_to_nchw,
     init_weights,
     set_network_dtype,
@@ -54,7 +54,8 @@ class MCAQYOLO(nn.Module):
 
     aux: 'complexity_map' and 'bit_map' (per-scale (B, Ht, Wt) lists),
     'avg_bits' (mean over scales of each scale's tile mean),
-    'quantized_features' (per-scale NHWC), 'feature_layers'.
+    'quantized_features' (per-scale NHWC), 'feature_layers' (the family's
+    backbone layers tapped: [4, 6, 9] YOLOv8, [4, 6, 10] YOLO11).
 
     `dtype` is the network's compute dtype (bfloat16 on the deployed path;
     the convolution weights are cast once).  For bfloat16 training keep
@@ -84,6 +85,7 @@ class MCAQYOLO(nn.Module):
         if morph_tile_engine not in TILE_ENGINES:
             raise ValueError(f"morph_tile_engine must be one of {TILE_ENGINES}, "
                              f"got {morph_tile_engine!r}")
+        self.feature_layers = FEATURE_LAYERS[family(variant)]
         device = resolve_device(device)
         self.variant, self.num_classes = variant, num_classes
         self.min_bits, self.max_bits, self.target_bits = min_bits, max_bits, target_bits
@@ -94,9 +96,7 @@ class MCAQYOLO(nn.Module):
         self.morph_tile_engine = morph_tile_engine
         self.dtype = dtype
 
-        self.backbone = YOLOv8Backbone(variant)
-        self.neck = YOLOv8Neck(variant)
-        self.head = DetectHead(num_classes, variant)
+        self.backbone, self.neck, self.head = build_network(variant, num_classes)
         self.complexity_analyzer = MorphologicalComplexityAnalyzer(
             grid_size=grid_size, downsample=morph_downsample, tile_engine=morph_tile_engine)
         if bit_mapping == "constant":
@@ -202,7 +202,7 @@ class MCAQYOLO(nn.Module):
             "bit_map": bit_maps,
             "avg_bits": avg_bits,
             "quantized_features": [f.permute(0, 2, 3, 1) for f in feats_q],
-            "feature_layers": [4, 6, 9],
+            "feature_layers": list(self.feature_layers),
         }
         return raw_maps, aux
 

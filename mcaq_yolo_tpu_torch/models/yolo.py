@@ -1,12 +1,15 @@
 """
-YOLOv8 detection model family (n/s/m/l/x) and the deployed decode + NMS
-(port of `mcaq_yolo_tpu/models/yolo.py:28-342`).
+Detection model families YOLOv8 and YOLO11 (scales n/s/m/l/x) and the
+deployed decode + NMS (port of `mcaq_yolo_tpu/models/yolo.py:28-342`; YOLO11
+from Ultralytics `ultralytics/cfg/models/11/yolo11.yaml`, which the JAX
+package does not have).
 
 The backbone returns (C3, C4, C5) so MCAQ sits between backbone and neck;
 the Detect head emits raw per-scale maps.  Inside the network tensors are
 NCHW in channels_last memory; at the public boundary the reference's NHWC
 layout is kept: images (B, H, W, 3), raw maps (B, H, W, 4*REG_MAX + nc)
-float32.
+float32.  A variant is a family's name and a scale letter ('yolov8n',
+'yolo11l'); any other name raises ValueError.
 """
 
 from __future__ import annotations
@@ -21,19 +24,29 @@ from .. import initializers as init
 from ..device import DeviceLike, resolve_device
 from ..ops.nms import nms_from_topk, stable_topk
 from ..utils.profiling import span
-from .layers import SPPF, C2f, ConvBnSiLU, upsample2x
+from .layers import C2PSA, SPPF, C2f, C3k2, ConvBnSiLU, SeparableConvBnSiLU, upsample2x
 
-# variant: (depth_mult, width_mult, max_channels)
-VARIANTS = {
-    "yolov8n": (0.33, 0.25, 1024),
-    "yolov8s": (0.33, 0.50, 1024),
-    "yolov8m": (0.67, 0.75, 768),
-    "yolov8l": (1.00, 1.00, 512),
-    "yolov8x": (1.00, 1.25, 512),
+# family: scale: (depth_mult, width_mult, max_channels)
+FAMILIES = {
+    "yolov8": {"n": (0.33, 0.25, 1024), "s": (0.33, 0.50, 1024), "m": (0.67, 0.75, 768),
+               "l": (1.00, 1.00, 512), "x": (1.00, 1.25, 512)},
+    "yolo11": {"n": (0.50, 0.25, 1024), "s": (0.50, 0.50, 1024), "m": (0.50, 1.00, 512),
+               "l": (1.00, 1.00, 512), "x": (1.00, 1.50, 512)},
 }
+# variant: (depth_mult, width_mult, max_channels)
+VARIANTS = {f + s: v for f, scales in FAMILIES.items() for s, v in scales.items()}
+# the backbone layers (yaml indices) whose outputs are the neck's C3 / C4 / C5
+FEATURE_LAYERS = {"yolov8": [4, 6, 9], "yolo11": [4, 6, 10]}
 
 REG_MAX = 16
 STRIDES = (8, 16, 32)
+
+
+def family(variant: str) -> str:
+    """'yolov8' or 'yolo11' of a variant name; ValueError for any other."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}: one of {sorted(VARIANTS)}")
+    return variant[:-1]
 
 
 def _ch(base: int, width: float, max_ch: int) -> int:
@@ -45,10 +58,25 @@ def _n(base: int, depth: float) -> int:
     return max(round(base * depth), 1)
 
 
-def variant_channels(variant: str) -> Tuple[int, int, int]:
-    """(C3, C4, C5) channel counts of a variant."""
+def _scaled(variant: str):
+    """(depth, channel rule) of a variant."""
+    family(variant)
     d, w, mc = VARIANTS[variant]
-    return _ch(256, w, mc), _ch(512, w, mc), _ch(1024, w, mc)
+    return d, lambda b: _ch(b, w, mc)
+
+
+def variant_channels(variant: str) -> Tuple[int, int, int]:
+    """(C3, C4, C5) channel counts of a variant: the backbone's outputs."""
+    _, c = _scaled(variant)
+    if family(variant) == "yolo11":
+        return c(512), c(512), c(1024)
+    return c(256), c(512), c(1024)
+
+
+def head_channels(variant: str) -> Tuple[int, int, int]:
+    """The neck's P3 / P4 / P5 channel counts, the Detect head's inputs."""
+    _, c = _scaled(variant)
+    return c(256), c(512), c(1024)
 
 
 def normalize_image(x: torch.Tensor) -> torch.Tensor:
@@ -69,8 +97,7 @@ class YOLOv8Backbone(nn.Module):
 
     def __init__(self, variant: str = "yolov8n"):
         super().__init__()
-        d, w, mc = VARIANTS[variant]
-        c = lambda b: _ch(b, w, mc)  # noqa: E731
+        d, c = _scaled(variant)
         self.ConvBnSiLU_0 = ConvBnSiLU(3, c(64), 3, 2)
         self.ConvBnSiLU_1 = ConvBnSiLU(c(64), c(128), 3, 2)
         self.C2f_0 = C2f(c(128), c(128), _n(3, d), True)
@@ -96,8 +123,7 @@ class YOLOv8Neck(nn.Module):
 
     def __init__(self, variant: str = "yolov8n"):
         super().__init__()
-        d, w, mc = VARIANTS[variant]
-        c = lambda b: _ch(b, w, mc)  # noqa: E731
+        d, c = _scaled(variant)
         self.C2f_0 = C2f(c(1024) + c(512), c(512), _n(3, d), False)
         self.C2f_1 = C2f(c(512) + c(256), c(256), _n(3, d), False)
         self.ConvBnSiLU_0 = ConvBnSiLU(c(256), c(256), 3, 2)
@@ -114,15 +140,73 @@ class YOLOv8Neck(nn.Module):
         return p3, n4, n5
 
 
+class YOLO11Backbone(nn.Module):
+    """Stem + stages P1..P5 of C3k2 blocks, SPPF and C2PSA; returns (C3, C4,
+    C5), the outputs of yaml layers 4, 6 and 10.  The C3k2 blocks hold C3k
+    at scales m, l and x (and in layers 6 and 8 at every scale)."""
+
+    def __init__(self, variant: str = "yolo11n"):
+        super().__init__()
+        d, c = _scaled(variant)
+        big = variant[-1] in "mlx"
+        n = _n(2, d)
+        self.ConvBnSiLU_0 = ConvBnSiLU(3, c(64), 3, 2)
+        self.ConvBnSiLU_1 = ConvBnSiLU(c(64), c(128), 3, 2)
+        self.C3k2_0 = C3k2(c(128), c(256), n, big, 0.25)
+        self.ConvBnSiLU_2 = ConvBnSiLU(c(256), c(256), 3, 2)
+        self.C3k2_1 = C3k2(c(256), c(512), n, big, 0.25)
+        self.ConvBnSiLU_3 = ConvBnSiLU(c(512), c(512), 3, 2)
+        self.C3k2_2 = C3k2(c(512), c(512), n, True)
+        self.ConvBnSiLU_4 = ConvBnSiLU(c(512), c(1024), 3, 2)
+        self.C3k2_3 = C3k2(c(1024), c(1024), n, True)
+        self.SPPF_0 = SPPF(c(1024), c(1024))
+        self.C2PSA_0 = C2PSA(c(1024), n)
+
+    def forward(self, x, training: bool = False):
+        t = training
+        x = self.C3k2_0(self.ConvBnSiLU_1(self.ConvBnSiLU_0(x, t), t), t)
+        c3 = self.C3k2_1(self.ConvBnSiLU_2(x, t), t)
+        c4 = self.C3k2_2(self.ConvBnSiLU_3(c3, t), t)
+        c5 = self.C2PSA_0(self.SPPF_0(self.C3k2_3(self.ConvBnSiLU_4(c4, t), t), t), t)
+        return c3, c4, c5
+
+
+class YOLO11Neck(nn.Module):
+    """PAN of C3k2 blocks: top-down then bottom-up fusion."""
+
+    def __init__(self, variant: str = "yolo11n"):
+        super().__init__()
+        d, c = _scaled(variant)
+        big = variant[-1] in "mlx"
+        n = _n(2, d)
+        c3, c4, c5 = variant_channels(variant)
+        self.C3k2_0 = C3k2(c5 + c4, c(512), n, big)
+        self.C3k2_1 = C3k2(c(512) + c3, c(256), n, big)
+        self.ConvBnSiLU_0 = ConvBnSiLU(c(256), c(256), 3, 2)
+        self.C3k2_2 = C3k2(c(256) + c(512), c(512), n, big)
+        self.ConvBnSiLU_1 = ConvBnSiLU(c(512), c(512), 3, 2)
+        self.C3k2_3 = C3k2(c(512) + c5, c(1024), n, True)
+
+    def forward(self, c3, c4, c5, training: bool = False):
+        t = training
+        p4 = self.C3k2_0(torch.cat([upsample2x(c5), c4], dim=1), t)
+        p3 = self.C3k2_1(torch.cat([upsample2x(p4), c3], dim=1), t)
+        n4 = self.C3k2_2(torch.cat([self.ConvBnSiLU_0(p3, t), p4], dim=1), t)
+        n5 = self.C3k2_3(torch.cat([self.ConvBnSiLU_1(n4, t), c5], dim=1), t)
+        return p3, n4, n5
+
+
 class DetectHead(nn.Module):
     """Decoupled anchor-free head: per scale a box branch (2x Conv3x3 ->
-    1x1, 4*REG_MAX) and a cls branch (2x Conv3x3 -> 1x1, nc).  Returns raw
+    1x1, 4*REG_MAX) and a cls branch (2x Conv3x3 -> 1x1, nc; YOLO11: 2x
+    depthwise 3x3 + 1x1, `SeparableConvBnSiLU`, -> 1x1, nc).  Returns raw
     maps (B, H, W, 4*REG_MAX + nc) float32."""
 
     def __init__(self, num_classes: int = 80, variant: str = "yolov8n"):
         super().__init__()
-        d, w, mc = VARIANTS[variant]
-        chans = variant_channels(variant)
+        chans = head_channels(variant)
+        cls_stage = SeparableConvBnSiLU if family(variant) == "yolo11" else \
+            (lambda c_in, c_out: ConvBnSiLU(c_in, c_out, 3))
         c3ch = chans[0]
         c_box = max(16, c3ch // 4, 4 * REG_MAX)
         c_cls = max(c3ch, min(num_classes, 100))
@@ -131,8 +215,8 @@ class DetectHead(nn.Module):
             self.add_module(f"box{i}_conv0", ConvBnSiLU(cf, c_box, 3))
             self.add_module(f"box{i}_conv1", ConvBnSiLU(c_box, c_box, 3))
             self.add_module(f"box{i}_out", nn.Conv2d(c_box, 4 * REG_MAX, 1))
-            self.add_module(f"cls{i}_conv0", ConvBnSiLU(cf, c_cls, 3))
-            self.add_module(f"cls{i}_conv1", ConvBnSiLU(c_cls, c_cls, 3))
+            self.add_module(f"cls{i}_conv0", cls_stage(cf, c_cls))
+            self.add_module(f"cls{i}_conv1", cls_stage(c_cls, c_cls))
             self.add_module(f"cls{i}_out", nn.Conv2d(c_cls, num_classes, 1))
 
     @torch.no_grad()
@@ -178,9 +262,17 @@ def set_network_dtype(*modules: nn.Module, dtype: torch.dtype) -> None:
                 m.to(dtype=dtype)
 
 
+def build_network(variant: str, num_classes: int):
+    """(backbone, neck, head) of a variant's family."""
+    if family(variant) == "yolo11":
+        return YOLO11Backbone(variant), YOLO11Neck(variant), DetectHead(num_classes, variant)
+    return YOLOv8Backbone(variant), YOLOv8Neck(variant), DetectHead(num_classes, variant)
+
+
 class YOLOv8(nn.Module):
-    """Plain (non-MCAQ) YOLOv8: images (B, H, W, 3) -> raw maps.  The
-    float32 teacher of knowledge distillation and the base ablation arm."""
+    """Plain (non-MCAQ) detector of any family (`variant`): images (B, H,
+    W, 3) -> raw maps.  The float32 teacher of knowledge distillation and
+    the base ablation arm."""
 
     def __init__(self, variant: str = "yolov8n", num_classes: int = 80,
                  dtype: torch.dtype = torch.float32, device: DeviceLike = None,
@@ -188,9 +280,7 @@ class YOLOv8(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.dtype = dtype
-        self.backbone = YOLOv8Backbone(variant)
-        self.neck = YOLOv8Neck(variant)
-        self.head = DetectHead(num_classes, variant)
+        self.backbone, self.neck, self.head = build_network(variant, num_classes)
         init_weights(self, seed)
         set_network_dtype(self, dtype=dtype)
         self.to(device=device, memory_format=torch.channels_last)

@@ -97,7 +97,7 @@ from .models.weights_io import (
     params_tree,
     to_jax_variables,
 )
-from .models.yolo import YOLOv8, decode_and_nms
+from .models.yolo import YOLOv8, decode_and_nms, family
 from .utils.checkpoint import load_checkpoint, save_checkpoint, shard_like, write_msgpack
 from .utils.evaluation import (
     compute_map,
@@ -408,8 +408,9 @@ def make_val_loss_step(model: MCAQYOLO, loss_obj: MCAQYOLOLoss):
 
 
 def load_teacher(path, variant: str, num_classes: int, device: DeviceLike = None) -> YOLOv8:
-    """A float32 YOLOv8 from a flax `YOLOv8` variables msgpack ('params' and
-    'batch_stats'); raises ValueError when a leaf is missing or extra."""
+    """A float32 plain detector of the variant's family (`YOLOv8`) from a
+    flax variables msgpack ('params' and 'batch_stats'); raises ValueError
+    when a leaf is missing or extra."""
     teacher = YOLOv8(variant, num_classes, device=device)
     payload = load_checkpoint(path)
     template = to_jax_variables(teacher)
@@ -432,9 +433,9 @@ def _leaf_paths(tree, prefix=""):
 def export_teacher_from_ckpt(ckpt_path: str, out_path: str, variant: str,
                              num_classes: int) -> str:
     """Extract the detector (backbone / neck / head parameters and BatchNorm
-    statistics) of an MCAQ checkpoint into a plain-YOLOv8 variables msgpack,
-    the teacher format `Trainer` loads.  The structure and shapes are checked
-    against a YOLOv8 of the given variant."""
+    statistics) of an MCAQ checkpoint into a plain-detector variables
+    msgpack, the teacher format `Trainer` loads.  The structure and shapes
+    are checked against the plain model (`YOLOv8`) of the given variant."""
     payload = load_checkpoint(ckpt_path)
     teacher = YOLOv8(variant, num_classes, device="cpu")
     load_jax_variables(teacher, {
@@ -462,7 +463,9 @@ class Trainer:
     `output_dir`).  Loaders passed in (e.g. lists of in-memory batches; the
     train loader must have a length) are used as they are, without
     curriculum scoring.  The teacher is required when
-    `distillation.enabled` (read from `model.teacher_path`).
+    `distillation.enabled` (read from `model.teacher_path`).  `model.name`
+    is a variant of `models/yolo.py:VARIANTS` (yolov8n-x, yolo11n-x); any
+    other name raises ValueError.
 
     In a torch.distributed process group of N > 1 ranks (torchrun), every
     rank builds its Trainer with the same config; the mesh takes gcd(
@@ -516,8 +519,7 @@ class Trainer:
         self.num_classes = int(mcfg.get("num_classes", 80))
         self.img_size = int(dcfg.get("img_size", 640))
         self.variant = str(mcfg.get("name", "yolov8n"))
-        if not self.variant.startswith("yolov8"):
-            self.variant = f"yolov8{self.variant[-1]}"
+        family(self.variant)  # an unknown name raises here, mapped to no other family
         self.morph_tile_engine = str(morph.get("tile_engine", "lanes"))
 
         # amp: bfloat16 convolutions on CUDA, float32 weights

@@ -50,7 +50,14 @@ one deployed call and over one train step equals the synchronizing
 operations torch's sync debug mode reports there, and repeats exactly; a
 span's stream time covers the device time of the kernels launched inside
 it, and the program's annotations in the profiler's trace match the span
-summary's names and counts."""
+summary's names and counts.
+
+YOLO11 (`models/layers.py`): the deployed YOLO11l at bs 8 and 640 px is
+bitwise its path with every ConvBnSiLU on F.batch_norm + F.silu, and one
+call launches the BatchNorm + SiLU kernel once a ConvBnSiLU with SiLU (159)
+and the quantize and phi kernels three times each; each depthwise
+ConvBnSiLU of YOLO11l's head through the kernel is bitwise the same module
+without it."""
 
 import numpy as np
 import pytest
@@ -873,3 +880,71 @@ def test_span_stream_time_covers_its_kernels(cuda, tmp_path):
         assert r["stream_ms"] * 1e3 >= 0.99 * busy_us - 2.0, (r["name"], r["stream_ms"], busy_us)
         checked += busy_us > 0
     assert checked >= 10
+
+
+# ---------------------------------------------------------------------------
+# YOLO11 on the card (models/layers.py C3k2, C2PSA, the depthwise head)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_yolo11l_deployed_bitwise_without_bn_silu_and_its_launches(cuda, monkeypatch):
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+    from mcaq_yolo_tpu_torch.inference import deployed_program
+    from mcaq_yolo_tpu_torch.models.layers import ConvBnSiLU
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+    from mcaq_yolo_tpu_torch.ops import bn_silu as bs
+
+    model = MCAQYOLO("yolo11l", 80, morph_downsample=2, dtype=torch.bfloat16, device=cuda,
+                     seed=2)
+    acts = sum(isinstance(m, ConvBnSiLU) and m.act for m in model.modules())
+    x = torch.from_numpy(np.random.default_rng(11).integers(0, 256, (8, 640, 640, 3),
+                                                            dtype=np.uint8)).to(cuda)
+
+    def call():
+        with torch.inference_mode():
+            return [t.clone() for t in deployed_program(model, x, 80, conf_threshold=0.0,
+                                                        max_det=300)]
+
+    call()  # warm-up
+    before = (bs.launches(), sq.spatial_quantize.launches, ml.phi_tiles.launches)
+    kernel = call()
+    torch.cuda.synchronize()
+    after = (bs.launches(), sq.spatial_quantize.launches, ml.phi_tiles.launches)
+    assert acts == 159
+    assert [a - b for a, b in zip(after, before)] == [159, 3, 3]
+    monkeypatch.setattr(bs, "takes", lambda x, bn: False)
+    unfused = call()
+    assert bs.launches() == after[0]
+    assert int(kernel[3].sum()) > 0
+    for a, b in zip(kernel, unfused):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,H", [(256, 80), (512, 40), (256, 40), (512, 20), (256, 20)])
+def test_depthwise_conv_bn_silu_through_the_kernel_is_bitwise(cuda, monkeypatch, C, H):
+    """YOLO11l's head at bs 8: the depthwise 3x3 ConvBnSiLU of each class
+    branch stage, bf16 on channels-last maps."""
+    from mcaq_yolo_tpu_torch.models.layers import ConvBnSiLU
+    from mcaq_yolo_tpu_torch.ops import bn_silu as bs
+
+    g = torch.Generator().manual_seed(C + H)
+    m = ConvBnSiLU(C, C, 3, groups=C)
+    with torch.no_grad():
+        m.Conv_0.weight.normal_(0, 0.3, generator=g)
+        bn = m.BatchNorm_0
+        bn.weight.uniform_(0.5, 1.5, generator=g), bn.bias.normal_(0, 1, generator=g)
+        bn.running_mean.normal_(0, 1, generator=g), bn.running_var.uniform_(0.05, 2, generator=g)
+    m.Conv_0.to(dtype=torch.bfloat16)
+    m.to(device=cuda, memory_format=torch.channels_last)
+    x = (torch.randn(8, C, H, H, generator=g) * 3).to(device=cuda, dtype=torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        before = bs.launches()
+        out = m(x)
+        torch.cuda.synchronize()
+        assert bs.launches() == before + 1
+        monkeypatch.setattr(bs, "takes", lambda x, bn: False)
+        plain = m(x)
+    assert torch.equal(out.view(torch.int16), plain.view(torch.int16))

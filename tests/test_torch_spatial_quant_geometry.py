@@ -32,6 +32,8 @@ def _variant_widths():
     """(variant, scale, H, C) of every YOLOv8 variant's C3 / C4 / C5 at 640 px."""
     out = []
     for name, (_, w, mc) in VARIANTS.items():
+        if not name.startswith("yolov8"):
+            continue
         for scale, (h, base) in zip(("P3", "P4", "P5"), ((80, 256), (40, 512), (20, 1024))):
             out.append((name, scale, h, _ch(base, w, mc)))
     return out
