@@ -46,7 +46,6 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import initializers as init
-from ..utils.profiling import count, span
 from . import image_ops as iops
 
 # ---------------------------------------------------------------------------
@@ -654,24 +653,22 @@ def score_image_eq8(images: torch.Tensor, grid_size: int = 8,
 # ---------------------------------------------------------------------------
 
 
-def bilateral_filter(c_map: torch.Tensor, sigma_spatial: float = 2.0,
-                     sigma_range: float = 0.1, kernel_size: int = 5) -> torch.Tensor:
+def bilateral_filter(c_map: torch.Tensor, spatial_w: torch.Tensor,
+                     sigma_range: float = 0.1) -> torch.Tensor:
     """Bilateral filter of a (B, ht, wt) complexity map with replicate
-    padding (reference `morphology.py:474-501`).  Its spatial weights are
-    copied from the host on every call: one host sync (`host_syncs`, span
-    'sync.bilateral_weights')."""
+    padding (reference `morphology.py:474-501`).  `spatial_w` holds the k*k
+    spatial weights (`image_ops.spatial_weights`, float32) on the map's
+    device, as the analyzer's buffer does, so the filter copies nothing from
+    the host."""
     B, H, W = c_map.shape
+    kernel_size = math.isqrt(spatial_w.numel())
     pad = kernel_size // 2
     xp = iops.replicate_pad(c_map, pad)
     patches = torch.stack(
         [xp[:, pad + dy:pad + dy + H, pad + dx:pad + dx + W]
          for dy in range(-pad, pad + 1) for dx in range(-pad, pad + 1)], dim=-1)
-    with span("sync.bilateral_weights"):
-        count("host_syncs")
-        sw = torch.tensor(iops.spatial_weights(kernel_size, sigma_spatial),
-                          dtype=torch.float32, device=c_map.device)
     range_w = torch.exp(-((patches - c_map[..., None]) ** 2) / (2.0 * sigma_range ** 2))
-    weights = sw * range_w
+    weights = spatial_w * range_w
     return (weights * patches).sum(dim=-1) / (weights.sum(dim=-1) + 1e-8)
 
 
@@ -723,6 +720,11 @@ class MorphologicalComplexityAnalyzer(nn.Module):
         self.downsample, self.tile_engine = downsample, tile_engine
         self.complexity_mlp = ComplexityMLP()
         self.register_buffer("feature_weights", torch.full((5,), 0.2))
+        # the bilateral filter's spatial weights, made once and moved with the
+        # module, so a forward copies nothing from the host; not in state_dict
+        self.register_buffer(
+            "spatial_w", torch.tensor(iops.spatial_weights(5, 2.0), dtype=torch.float32),
+            persistent=False)
 
     def _phi(self, features: torch.Tensor) -> torch.Tensor:
         return compute_phi_tiles(
@@ -735,7 +737,7 @@ class MorphologicalComplexityAnalyzer(nn.Module):
         phi = self._phi(features)
         B, ht, wt, _ = phi.shape
         c = self.complexity_mlp(phi.reshape(-1, 8)).reshape(B, ht, wt)
-        return torch.clamp(bilateral_filter(c), 0.0, 1.0)
+        return torch.clamp(bilateral_filter(c, self.spatial_w), 0.0, 1.0)
 
     def score_image(self, features: torch.Tensor) -> torch.Tensor:
         """Deterministic Eq.(8) per-image complexity for dataset sorting

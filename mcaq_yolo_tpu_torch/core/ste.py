@@ -4,8 +4,6 @@ and `clip`, jnp.clip's gradient rule for clips on a gradient path."""
 
 import torch
 
-from ..utils.profiling import count, span
-
 
 def ste(x: torch.Tensor, fx: torch.Tensor) -> torch.Tensor:
     return x + (fx - x).detach()
@@ -23,8 +21,9 @@ def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """min(max(x, lo), hi), as jnp.clip computes it: the forward value of
     torch.clamp, but at x == lo or x == hi the gradient is split in half
     (torch.maximum / minimum split ties, as lax.max / min do), where
-    torch.clamp passes it whole.  Its two bounds are copied from the host
-    on every call: two host syncs (`host_syncs`, span 'sync.clip_bounds')."""
-    with span("sync.clip_bounds"):
-        count("host_syncs", 2)
-        return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    torch.clamp passes it whole.  The bounds are 0-dim CPU tensors of x's
+    dtype, which a CUDA binary op takes as kernel arguments: nothing is
+    copied to the card and the host does not wait for it."""
+    lo_t = torch.tensor(lo, dtype=x.dtype, device="cpu")
+    hi_t = torch.tensor(hi, dtype=x.dtype, device="cpu")
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)

@@ -119,7 +119,8 @@ def trace(log_dir: Optional[str] = None):
 #                step where the host waits for the card (a pageable copy to
 #                the card, a read of a device value); each site runs inside
 #                a span `sync.<site>`.  Counted at the site on any device,
-#                so a CPU run counts the sites a card would block at.
+#                so a CPU run counts the sites a card would block at.  The
+#                one site is `sync.nms_sweep`; the MCAQ transform has none.
 #   nms_sweeps   the keep sweeps of `ops/nms.py:keep_fixed_point`.
 #   bn_silu      the launches of the eval BatchNorm + SiLU kernel
 #                (`ops/bn_silu.py`), one a ConvBnSiLU on the card in eval.

@@ -47,7 +47,9 @@ a tile whose Otsu bin the plain version's rounded float sums moved.
 
 The program's spans and counters (`utils/profiling.py`): `host_syncs` over
 one deployed call and over one train step equals the synchronizing
-operations torch's sync debug mode reports there, and repeats exactly; a
+operations torch's sync debug mode reports there (the NMS keep sweeps'
+reads; none in a train step), and repeats exactly; the MCAQ transform,
+served and trained, runs under the mode's "error" setting; a
 span's stream time covers the device time of the kernels launched inside
 it, and the program's annotations in the profiler's trace match the span
 summary's names and counts.
@@ -805,8 +807,8 @@ def test_host_syncs_match_the_sync_debug_mode(cuda):
     model, x = _served(cuda)
     _deployed(model, x)  # warm-up
     calls = [counted(lambda: _deployed(model, x)) for _ in range(2)]
-    for warned, delta in calls:
-        assert delta["host_syncs"] == warned == 3 + 6 + delta["nms_sweeps"]
+    for warned, delta in calls:   # the keep sweeps' reads, and no MCAQ sync
+        assert delta["host_syncs"] == warned == delta["nms_sweeps"]
     assert calls[0] == calls[1]
     assert calls[0][1]["nms_sweeps"] >= 2
 
@@ -822,9 +824,82 @@ def test_host_syncs_match_the_sync_debug_mode(cuda):
 
     one_step()  # warm-up: AdamW's state
     steps = [counted(one_step) for _ in range(2)]
-    for warned, delta in steps:
-        assert delta["host_syncs"] == warned == 3 + 6
+    for warned, delta in steps:   # a train step holds no sync at all
+        assert delta["host_syncs"] == warned == 0
     assert steps[0] == steps[1]
+
+
+@pytest.mark.gpu
+def test_mcaq_transform_runs_under_the_sync_debug_mode_error(cuda):
+    """`MCAQYOLO.mcaq_transform` holds no synchronizing operation: a served
+    bs-4 batch through it, and a training forward + backward, run under
+    torch.cuda.set_sync_debug_mode("error"), and the served outputs are
+    bitwise the same call's before the mode was set.  `clip` on the card
+    is bitwise min(max(x, lo), hi) with bounds copied to the card, its
+    value and its gradient, in float32 and bfloat16."""
+    from mcaq_yolo_tpu_torch.core.ste import clip
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+
+    def in_error_mode(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    model, x = _served(cuda)
+    with torch.inference_mode():
+        feats = model.backbone_features(x)
+
+        def served():
+            return [model.mcaq_transform(f, i, 1.0, True) for i, f in enumerate(feats)]
+
+        ref = [[t.clone() for t in out] for out in served()]
+        got = in_error_mode(served)
+    for a, b in zip(ref, got):
+        assert len(a) == len(b) == 3
+        for u, v in zip(a, b):
+            assert u.dtype == v.dtype and torch.equal(u, v)
+
+    student = MCAQYOLO(num_classes=4, device=cuda, seed=0)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        tfeats = [f.detach().requires_grad_(True)
+                  for f in student.backbone_features(x, training=True)]
+
+    def trained():
+        loss = 0.0
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            for i, f in enumerate(tfeats):
+                fq, c, b = student.mcaq_transform(f, i, 4.85, True, training=True)
+                loss = loss + fq.float().square().mean() + c.mean() + b.mean()
+        loss.backward()
+        return [f.grad for f in tfeats]
+
+    trained()  # warm-up
+    for f in tfeats:
+        f.grad = None
+    grads = in_error_mode(trained)
+    torch.cuda.synchronize()
+    assert all(gr is not None and torch.isfinite(gr).all() for gr in grads)
+    assert any(p.grad is not None and p.grad.abs().sum() > 0
+               for p in student.complexity_analyzer.parameters())
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = (torch.rand(4096, generator=g, device=cuda) * 3 - 1).to(dtype)
+        xs[:2] = torch.tensor([0.0, 1.0], dtype=dtype, device=cuda)
+        up = torch.randn(xs.shape, generator=g, device=cuda).to(dtype)
+        outs, grs = [], []
+        for copied in (False, True):
+            xi = xs.clone().requires_grad_(True)
+            y = torch.minimum(torch.maximum(xi, xi.new_tensor(0.0)), xi.new_tensor(1.0)) \
+                if copied else in_error_mode(lambda: clip(xi, 0.0, 1.0))
+            y.backward(up)
+            outs.append(y.detach())
+            grs.append(xi.grad)
+        assert torch.equal(outs[0], outs[1]) and torch.equal(grs[0], grs[1])
+        assert torch.equal(grs[0][:2], up[:2] / 2)
 
 
 @pytest.mark.gpu
