@@ -52,18 +52,18 @@ Phases (any failure exits non-zero and prints no result):
      kernel launch counts are reset just before and read just after, and
      one forward with quant_backend='torch' must give bitwise-equal raw
      maps;
-  4. timings with CUDA events (median of 21): the device time of the
-     kernel and of its plain version (with the soft mask and without), the
-     per-channel min/max pass, the kernel's bound and its launch's waves
-     over the SMs, per scale at bs=32 bf16 (8 launches back to back on
-     distinct copies of the input, a working set larger than L2, queued
-     behind a device sleep so the host's enqueue time is not counted),
-     plus the kernel's host-paced time and host time per call; the
-     deployed program's images/s at bs=32 and bs=256 (host included, as a
-     caller sees it), and its decode + NMS alone with the eager keep loop
-     and with the `while_loop` one that export traces; the morphology
-     stage's share of a forward; the phi kernel per scale at bs 32 and 256
-     (device ms, plain ms, bound) and, at bs 32, the CUDA kernels of one
+  4. the kernels alone, timed with CUDA events (median of 21; the
+     program's own times are the benchmark's, `python3 -m perfbench.run`):
+     the device time of the kernel and of its plain version (with the soft
+     mask and without), the per-channel min/max pass, the kernel's bound
+     and its launch's waves over the SMs, per scale at bs=32 bf16 (8
+     launches back to back on distinct copies of the input, a working set
+     larger than L2, queued behind a device sleep so the host's enqueue
+     time is not counted), plus the kernel's host-paced time and host time
+     per call; decode + NMS alone on the served raw maps at bs 32 and 256
+     with the eager keep loop and with the `while_loop` one that export
+     traces, bitwise equal (not timed); the phi kernel per scale at bs 32
+     and 256 (device ms, plain ms, bound) and, at bs 32, the CUDA kernels of one
      scale's phi with its gray preparation (at most 16) with each engine;
      the same timing for P3 at downsample 1 (tile 8, bs 32) and for Eq.(8)
      scoring's maps (bs 8 letterboxed images: tile 64 at 640 px, 128 at
@@ -78,11 +78,9 @@ Phases (any failure exits non-zero and prints no result):
      [2, 8], no kernel launch in training.  Then `calibrate` over 2 batches
      (3 launches each) and freeze; `save_checkpoint`; `Predictor` serves 8
      images from it (3 launches) and phase 3's kernel-versus-plain raw-map
-     check repeats on the trained model.  The train step's wall ms and
-     images/s, its split into student forward / teacher / loss / backward /
-     optimizer (CUDA events), peak memory and the device's idle share over two steps
-     (torch.profiler); one float32 step at 128 px, bs 2, on the card and
-     on the CPU from the same weights and batch (TF32 off), compared;
+     check repeats on the trained model.  Then one float32 step at 128 px,
+     bs 2, on the card and on the CPU from the same weights and batch (TF32
+     off), compared;
   6. training from disk: a v3 synthetic dataset of 128 train and 32 val
      images at 640 px written under build/, a seeded float32 teacher, then
      `Trainer(config, device="cuda").train()` from data.train / data.val
@@ -175,8 +173,8 @@ Phases (any failure exits non-zero and prints no result):
      one needs the reference's checkout: skipped with its reason), the
      card's name and power limit in `extra.device`, 3 spatial_quant and 3
      phi_tiles launches per forward of the headline program (the plain and
-     train arms 0 + 3), 5 runs a measurement, the headline within 0.5-2x of
-     phase 4's bs-256 program; the committed record is put back after.
+     train arms 0 + 3), 5 runs a measurement, a positive headline; the
+     committed record is put back after.
 
 Output: JSON lines; before the last, the `{"kernels": [...]}` summary
 (spatial_quant, phi_tiles and bn_silu, each with `launches_by_path`); the
@@ -943,40 +941,13 @@ def phase_timings(pred, device, dtype):
             emit(row)
             del xs, ms_
 
-    def program(xb):
-        return lambda k: pred._predict_device(xb)
-
-    throughput = {}
     for bs in (32, 256):
         xb = x32 if bs == 32 else torch.from_numpy(
             rng.integers(0, 256, (bs, IMG, IMG, 3), dtype=np.uint8)).to(device)
-        q1, ms, q3 = cuda_ms(program(xb), quartiles=True)
-        throughput[bs] = bs / (ms * 1e-3)
-        emit({"phase": "program_timing", "batch": bs, "img_size": IMG, "dtype": str(dtype),
-              "ms_per_batch": ms, "ms_p25": q1, "ms_p75": q3, "images_per_s": throughput[bs],
-              "program": "Predictor._predict_device (forward + decode + NMS, "
-                         "pool 256, conf 0.25, max_det 300)",
-              "peak_mem_GB": torch.cuda.max_memory_allocated(device) / 1e9})
-        nms_timing(pred, xb)
+        nms_keep_parity(pred, xb)
         del xb
 
-    phi_rows = phi_timings(model, x32, rng, device, dtype)
-
-    with torch.inference_mode():
-        feats = model.backbone(images_to_nchw(x32, dtype))
-
-        def morph():
-            for f in feats:
-                model.bit_mapper(model.complexity_analyzer(
-                    f.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)), 1.0)
-
-        morph_ms = cuda_ms(lambda k: morph())
-        fwd_ms = cuda_ms(lambda k: model(x32))
-        bb_ms = cuda_ms(lambda k: model.backbone(images_to_nchw(x32, dtype)))
-    emit({"phase": "forward_breakdown", "batch": 32, "forward_ms": fwd_ms,
-          "backbone_ms": bb_ms, "morphology_and_mapper_ms": morph_ms,
-          "morphology_share": morph_ms / fwd_ms})
-    return rows, throughput, phi_rows
+    return rows, phi_timings(model, x32, rng, device, dtype)
 
 
 def phi_timings(model, x32, rng, device, dtype):
@@ -1058,42 +1029,32 @@ def phi_timings(model, x32, rng, device, dtype):
     return rows
 
 
-def nms_timing(pred, xb):
-    """Decode + NMS alone on the served program's raw maps of batch xb,
-    once with the eager keep loop (`nms.keep_fixed_point`, what eager
-    callers run) and once with the `while_loop` one that torch.export
-    traces, called eagerly in its place: the first call's seconds (the
-    `while_loop` compiles at its first call of a shape) and the median
-    time of a call (CUDA events, host included); keep results bitwise
-    equal."""
+def nms_keep_parity(pred, xb):
+    """Decode + NMS alone on the served program's raw maps of batch xb, once
+    with the eager keep loop (`nms.keep_fixed_point`, what eager callers run)
+    and once with the `while_loop` one that torch.export traces, called
+    eagerly in its place: the keep results bitwise equal."""
     import torch
 
     from mcaq_yolo_tpu_torch.models.yolo import decode_and_nms
     from mcaq_yolo_tpu_torch.ops import nms
-    from mcaq_yolo_tpu_torch.utils.cuda_timing import cuda_ms
 
     with torch.inference_mode():
         raw, _ = pred.model(xb, temperature=pred.deploy_temperature, quantize=True)
-
-        def decode(k=0):
-            return decode_and_nms(raw, pred.num_classes, conf_threshold=pred.conf_threshold,
-                                  iou_threshold=pred.iou_threshold, max_det=pred.max_det,
-                                  pre_topk=pred.pre_topk)
-
-        eager_loop = nms.keep_fixed_point
-        row, outs = {"phase": "nms_timing", "batch": int(xb.shape[0])}, {}
+        eager_loop, outs = nms.keep_fixed_point, {}
         for name, loop in (("python_loop", eager_loop),
                            ("while_loop", nms.keep_fixed_point_traced)):
             nms.keep_fixed_point = loop
             try:
-                outs[name], first_s = _synced_s(decode)
-                row[name] = {"first_call_s": first_s, "ms": cuda_ms(decode)}
+                outs[name] = decode_and_nms(
+                    raw, pred.num_classes, conf_threshold=pred.conf_threshold,
+                    iou_threshold=pred.iou_threshold, max_det=pred.max_det,
+                    pre_topk=pred.pre_topk)
             finally:
                 nms.keep_fixed_point = eager_loop
     same = all(torch.equal(a, b) for a, b in zip(outs["python_loop"], outs["while_loop"]))
-    emit({**row, "bitwise_equal": same, "detections": int(outs["python_loop"][3].sum()),
-          "timing": "decode_and_nms alone on the program's raw maps; CUDA events around "
-                    "one call, host included, median of 21"})
+    emit({"phase": "nms_keep_parity", "batch": int(xb.shape[0]), "bitwise_equal": same,
+          "detections": int(outs["python_loop"][3].sum())})
     check(same, "the while_loop keep differs from the eager loop's")
 
 
@@ -1221,90 +1182,8 @@ def phase_training(device, workdir: Path, img: int = IMG, batch: int = TRAIN_BAT
     check(serve_launches == 3, f"spatial_quant launched {serve_launches} times in one "
                                "forward of the trained model (expected 3)")
     backend_parity(pred, images, device, "trained_backend_parity")
-    return trainer, {"training": train_launches, "calibration": calib_launches,
-                     "trained_serving": serve_launches}
-
-
-def phase_train_timing(trainer, device, reps: int = 5):
-    """The bs=16 bf16 KD train step: wall ms (host clock around a
-    synchronised step, median of `reps`), its split into the student's
-    forward, the teacher's, the loss with the assigner, backward and
-    optimizer (CUDA events between the phases), peak memory, and the
-    device's idle share over two steps (torch.profiler: union of kernel
-    intervals against the host's wall time, profiled and unprofiled)."""
-    import statistics
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    batch = trainer._to_device(trainer.train_loader[0])
-    e = 2
-    w = trainer.curriculum.get_loss_weights(e)
-    args = (trainer.curriculum.get_effective_temperature(e), trainer.curriculum.get_target_bits(e),
-            w["bit_budget"], w["smoothness"], w["distillation"], w["regularization"])
-
-    def step(mark=None):
-        return trainer.train_step(trainer.optimizer, batch, *args, quantize=True, use_kd=True,
-                                  mark=mark)
-
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    walls, splits = [], []
-    for _ in range(reps):
-        events = [("start", torch.cuda.Event(enable_timing=True))]
-        events[0][1].record()
-
-        def mark(name):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append((name, ev))
-
-        t0 = time.perf_counter()
-        step(mark)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        splits.append({b[0]: a[1].elapsed_time(b[1]) for a, b in zip(events, events[1:])})
-    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    split = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(2):
-            step()
-        torch.cuda.synchronize()
-        prof_wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [ev for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us, end = 0.0, float("-inf")
-    by_name = {}
-    for ev in sorted(kernels, key=lambda ev: ev.time_range.start):
-        s_, e_ = ev.time_range.start, ev.time_range.end
-        busy_us += max(0.0, e_ - max(s_, end))
-        end = max(end, e_)
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + (e_ - s_)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    ms = statistics.median(walls)
-    row = {"phase": "train_step_timing", "batch": TRAIN_BATCH, "img_size": IMG,
-           "dtype": "bfloat16 convolutions, float32 weights; float32 teacher; TF32 off",
-           "ms_per_step": ms, "ms_min": min(walls), "ms_max": max(walls),
-           "images_per_s": TRAIN_BATCH / (ms * 1e-3),
-           "split_ms": split, "split_sum_ms": sum(split.values()),
-           "peak_mem_GB": peak_gb,
-           "profiled_steps": 2, "profiled_wall_ms": prof_wall_us / 1e3,
-           "kernel_events": len(kernels),
-           "device_busy_ms": busy_us / 1e3 if kernels else None,
-           "idle_share": (1.0 - busy_us / prof_wall_us) if kernels else None,
-           # the profiler slows the host, not the kernels: the busy time per
-           # step against the unprofiled step's wall time
-           "idle_share_unprofiled_step": (1.0 - busy_us / 2e3 / ms) if kernels else None,
-           "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top],
-           "timing": "wall: host clock around a synchronised step, median of "
-                     f"{reps}; split: CUDA events between phases, median"}
-    emit(row)
-    return row
+    return {"training": train_launches, "calibration": calib_launches,
+            "trained_serving": serve_launches}
 
 
 def phase_step_cuda_vs_cpu(device, img: int = 128, batch: int = 2):
@@ -2912,15 +2791,14 @@ BENCH_RUNS_KEYS = ("e2e_decode_nms_sweep_imgs_per_sec_runs", "fwd_only_imgs_per_
                    "train_yolov8m_bs32_imgs_per_sec_per_chip_runs")
 
 
-def phase_bench(gpu: str, program_images_per_s: float) -> dict:
+def phase_bench(gpu: str) -> dict:
     """Phase 12: `python -m mcaq_yolo_tpu_torch.bench` in a process group of
     its own, as a user runs it (with BENCH_ENV): rc 0, the headline line
     first, bench.py's keys and metric name on the last line, every arm but
     torch_cpu_fallback measured, the card named, 3 + 3 launches per forward
-    of the headline program (and each arm's expected launches), and the
-    headline within 0.5-2x of phase 4's bs-256 program (`program_images_per_s`).
-    The record it writes is checked against its last line, then the
-    committed `evidence/torch/bench_last.json` is put back."""
+    of the headline program (and each arm's expected launches), a positive
+    headline.  The record it writes is checked against its last line, then
+    the committed `evidence/torch/bench_last.json` is put back."""
     import os
     import signal
 
@@ -2950,8 +2828,7 @@ def phase_bench(gpu: str, program_images_per_s: float) -> dict:
     first, last = json.loads(lines[0]), json.loads(lines[-1])
     ex = last.get("extra", {})
     emit({"phase": "bench", "gpu": gpu, "env": BENCH_ENV, "lines": len(lines),
-          "first_line_value": first.get("value"), "record": last,
-          "phase4_bs256_images_per_s": program_images_per_s, "wall_s": wall})
+          "first_line_value": first.get("value"), "record": last, "wall_s": wall})
     check(all(k in last for k in ("metric", "value", "unit", "vs_baseline", "extra")),
           f"the bench's last line lacks bench.py's keys: {sorted(last)}")
     check(last["metric"] == BENCH_METRIC and first.get("metric") == BENCH_METRIC,
@@ -2982,9 +2859,6 @@ def phase_bench(gpu: str, program_images_per_s: float) -> dict:
     check(len(runs) == len(BENCH_LAUNCHES) and all(len(r) == 5 for r in runs),
           f"the bench's runs: {runs} (expected 5 for each of {len(BENCH_LAUNCHES)} "
           "measurements)")
-    ratio = last["value"] / program_images_per_s
-    check(0.5 <= ratio <= 2.0, f"the bench's headline {last['value']} images/s is "
-                              f"{ratio:.2f}x phase 4's bs-256 program")
 
     def total(kernel):
         return int(round(sum(v[kernel] * v["calls"] for v in ex["launches"].values())))
@@ -3060,12 +2934,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         pred, launches = phase_deployed_program(device, dtype, Path(tmp))
         lap("3_deployed_program")
-        rows, throughput, phi_rows = phase_timings(pred, device, dtype)
+        rows, phi_rows = phase_timings(pred, device, dtype)
         del pred
         lap("4_timings")
-        trainer, path_launches = phase_training(device, Path(tmp))
-        phase_train_timing(trainer, device)
-        del trainer
+        path_launches = phase_training(device, Path(tmp))
         phase_step_cuda_vs_cpu(device)
         lap("5_training")
         path_launches.update(phase_train_from_disk(device, Path(tmp), gpu))
@@ -3085,7 +2957,7 @@ def main() -> int:
         lap("10_multi_device")
         path_launches.update(phase_entry_and_example(device, Path(tmp), gpu))
         lap("11_entry_and_example")
-    path_launches.update(phase_bench(gpu, throughput[256]))
+    path_launches.update(phase_bench(gpu))
     lap("12_bench")
     emit({"phase": "wall_s", "gpu": gpu, **wall, "total": round(sum(wall.values()), 3)})
 

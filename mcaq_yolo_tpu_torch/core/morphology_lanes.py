@@ -41,6 +41,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.build import Entry
 from . import morphology as tm
 
 # the kernel's constants (csrc/morph_tiles.cu): the warp path (kSmallThreads,
@@ -201,22 +202,10 @@ def otsu_bins_differ(tiles: torch.Tensor, canny_impl: str = "cv2compat",
     return differ
 
 
-def _kernel():
-    """The kernel's C entry point, built, loaded and typed on first use."""
-    global _kernel_fn
-    if _kernel_fn is None:
-        from ..ops.build import load_library
-
-        fn = load_library("morph_tiles").mcaq_phi_tiles
-        taps = ctypes.POINTER(ctypes.c_float)
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_longlong]
-                       + [ctypes.c_int, taps, taps, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _kernel_fn = fn
-    return _kernel_fn
-
-
-_kernel_fn = None
+# the kernel's C entry (csrc/morph_tiles.cu)
+_ENTRY = Entry("phi_tiles", "morph_tiles", "mcaq_phi_tiles",
+               [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_longlong, ctypes.c_int]
+               + [ctypes.POINTER(ctypes.c_float)] * 2 + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -245,23 +234,13 @@ def _launch(gray: torch.Tensor, tile: int, canny_impl: str, binarize_impl: str,
             contour_components: bool) -> torch.Tensor:
     """The kernel on a CUDA tensor: checks, launches, counts the launch."""
     ints, geo = kernel_args(gray, tile, canny_impl, binarize_impl, contour_components)
-    fn = _kernel()
     B, ht, wt = ints[:3]
     phi = torch.empty((B, ht, wt, 8), dtype=torch.float32, device=gray.device)
     scratch = (torch.empty(geo.scratch_bytes, dtype=torch.uint8, device=gray.device)
                if geo.ws_global else None)
-    index = gray.device.index
-    stream = torch._C._cuda_getCurrentRawStream(index)
     g5, g11 = _taps()
-    args = (gray.data_ptr(), phi.data_ptr(), scratch.data_ptr() if scratch is not None else None,
-            *ints, g5, g11, stream)
-    if index == torch._C._cuda_getDevice():
-        rc = fn(*args)
-    else:
-        with torch.cuda.device(index):
-            rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"phi_tiles kernel launch failed: CUDA error {rc}")
+    _ENTRY.launch(gray.device.index, gray.data_ptr(), phi.data_ptr(),
+                  scratch.data_ptr() if scratch is not None else None, *ints, g5, g11)
     phi_tiles.launches += 1
     return phi
 

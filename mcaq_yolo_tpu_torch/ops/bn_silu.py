@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import count, counters
+from .build import Entry
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # channels in one 16-byte group
@@ -75,21 +76,10 @@ def launches() -> int:
     return counters().get("bn_silu", 0)
 
 
-def _kernel():
-    """The kernel's C entry point, built, loaded and typed on first use."""
-    global _kernel_fn
-    if _kernel_fn is None:
-        from .build import load_library
-
-        fn = load_library("bn_silu").mcaq_bn_silu
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_longlong,
-                                                ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _kernel_fn = fn
-    return _kernel_fn
-
-
-_kernel_fn = None
+# the kernel's C entry (csrc/bn_silu.cu)
+_ENTRY = Entry("bn_silu", "bn_silu", "mcaq_bn_silu",
+               [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_longlong,
+                                        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
 
 
 def _plane(x) -> int:
@@ -130,20 +120,9 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     C = _check(x, weight, bias, running_mean, running_var)
     if x.numel() == 0:
         return
-    fn = _kernel()
-    index = x.device.index
-    # the raw handle of the current stream (torch.cuda.current_stream() costs
-    # several µs per call)
-    args = (x.data_ptr(), weight.data_ptr(), bias.data_ptr(), running_mean.data_ptr(),
-            running_var.data_ptr(), eps, _DTYPE_CODE[x.dtype], x.numel() // C, C, _plane(x),
-            torch._C._cuda_getCurrentRawStream(index))
-    if index == torch._C._cuda_getDevice():
-        rc = fn(*args)
-    else:
-        with torch.cuda.device(index):
-            rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"bn_silu kernel launch failed: CUDA error {rc}")
+    _ENTRY.launch(x.device.index, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                  running_mean.data_ptr(), running_var.data_ptr(), eps, _DTYPE_CODE[x.dtype],
+                  x.numel() // C, C, _plane(x))
     count("bn_silu")
 
 

@@ -9,6 +9,10 @@ with ctypes (no PyTorch headers, so a build takes seconds).  The hash
 covers the source and the flags, so an edited source rebuilds and
 `python3 chip_smoke.py` alone builds everything.  A failed build raises
 with the compiler's output.  Nothing here runs at import time.
+
+`Entry` is the one seam between a kernel's wrapper and its C interface:
+the typed C function, built and loaded at its first use, and its launch on
+the current stream of a device.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
@@ -46,8 +52,6 @@ NVCC_TARGET = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 NVCC_LINK = ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_FLAGS = {"spatial_quant": ("-fmad=false",), "morph_tiles": ("--fmad=false",),
                 "bn_silu": ("--fmad=false",)}
-# spatial_quant's flags, unchanged since its first build (its library hash)
-NVCC_FLAGS = NVCC_TARGET + KERNEL_FLAGS["spatial_quant"] + NVCC_LINK
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -153,3 +157,39 @@ def build_log(name: str) -> str:
     checkout."""
     p = BUILD_DIR / f"{name}.build.log"
     return p.read_text() if p.exists() else ""
+
+
+class Entry:
+    """The C function `symbol` of the library `library`, with its argtypes
+    and restype, built, loaded and typed at the first `fn()`; `kernel` names
+    it in a failed launch's error."""
+
+    def __init__(self, kernel: str, library: str, symbol: str, argtypes,
+                 restype=ctypes.c_int):
+        self.kernel, self.library, self.symbol = kernel, library, symbol
+        self.argtypes, self.restype = list(argtypes), restype
+        self._fn = None
+
+    def fn(self):
+        """The typed C function."""
+        if self._fn is None:
+            fn = getattr(load_library(self.library), self.symbol)
+            fn.argtypes, fn.restype = self.argtypes, self.restype
+            self._fn = fn
+        return self._fn
+
+    def launch(self, index: int, *args, stream=None) -> None:
+        """fn(*args, stream) with device `index` current; `stream` is that
+        device's current stream unless given, as a raw handle
+        (torch.cuda.current_stream() costs several µs a call).  A nonzero
+        return, a CUDA error, raises RuntimeError."""
+        fn = self.fn()
+        if stream is None:
+            stream = torch._C._cuda_getCurrentRawStream(index)
+        if index == torch._C._cuda_getDevice():
+            rc = fn(*args, stream)
+        else:
+            with torch.cuda.device(index):
+                rc = fn(*args, stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.kernel} kernel launch failed: CUDA error {rc}")

@@ -42,6 +42,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core import image_ops as iops
+from .build import Entry
 
 MIN_BITS, MAX_BITS = 2, 8
 N_BITS = MAX_BITS - MIN_BITS + 1
@@ -175,32 +176,18 @@ def _check(x, bit_map, x_min, x_max, mask):
     return B, H, W, C, Ht, Wt
 
 
-def _kernel():
-    """The kernel's C entry point, built, loaded and typed on first use."""
-    global _kernel_fn
-    if _kernel_fn is None:
-        from .build import load_library
-
-        fn = load_library("spatial_quant").mcaq_spatial_quant
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
-                       + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _kernel_fn = fn
-    return _kernel_fn
-
-
-_kernel_fn = None
+# the kernel's C entry and its occupancy query (csrc/spatial_quant.cu)
+_ENTRY = Entry("spatial_quant", "spatial_quant", "mcaq_spatial_quant",
+               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+               + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
+_BLOCKS_PER_SM = Entry("spatial_quant", "spatial_quant", "mcaq_spatial_quant_blocks_per_sm",
+                       [ctypes.c_int])
 
 
 def blocks_per_sm(dtype: torch.dtype) -> int:
     """Blocks of the quantize kernel resident on one SM at once (CUDA's
     occupancy calculator), for counting a launch's waves.  Needs CUDA."""
-    from .build import load_library
-
-    fn = load_library("spatial_quant").mcaq_spatial_quant_blocks_per_sm
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_int
-    n = fn(_DTYPE_CODE[dtype])
+    n = _BLOCKS_PER_SM.fn()(_DTYPE_CODE[dtype])
     if n < 1:
         raise RuntimeError("spatial_quant: the occupancy query failed")
     return n
@@ -210,11 +197,8 @@ def _launch(x: torch.Tensor, bit_map: torch.Tensor, x_min: torch.Tensor,
             x_max: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """The kernel on CUDA tensors: checks, launches, counts the launch."""
     B, H, W, C, Ht, Wt = _check(x, bit_map, x_min, x_max, mask)
-    fn = _kernel()
     geo = launch_geometry(B, H, W, C, x.element_size())
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    # the raw handle of the current stream (torch.cuda.current_stream() costs
-    # several µs per call); the launch needs x's device to be current
     index = x.device.index
     stream = torch._C._cuda_getCurrentRawStream(index)
     # scratch for the per-(bit, channel) scale and zero-point table that the
@@ -224,19 +208,13 @@ def _launch(x: torch.Tensor, bit_map: torch.Tensor, x_min: torch.Tensor,
     # stream
     table = torch.cuda.caching_allocator_alloc(2 * N_BITS * C * 4, index, stream)
     try:
-        args = (x.data_ptr(), bit_map.data_ptr(), x_min.data_ptr(), x_max.data_ptr(),
-                mask.data_ptr() if mask is not None else None, table, out.data_ptr(),
-                _DTYPE_CODE[x.dtype], B, H, W, C, Ht, Wt, C if x_min.dim() == 2 else 0,
-                geo.pix_per_block, geo.magic, geo.shift, stream)
-        if index == torch._C._cuda_getDevice():
-            rc = fn(*args)
-        else:
-            with torch.cuda.device(index):
-                rc = fn(*args)
+        _ENTRY.launch(index, x.data_ptr(), bit_map.data_ptr(), x_min.data_ptr(),
+                      x_max.data_ptr(), mask.data_ptr() if mask is not None else None, table,
+                      out.data_ptr(), _DTYPE_CODE[x.dtype], B, H, W, C, Ht, Wt,
+                      C if x_min.dim() == 2 else 0, geo.pix_per_block, geo.magic, geo.shift,
+                      stream=stream)
     finally:
         torch.cuda.caching_allocator_delete(table)
-    if rc != 0:
-        raise RuntimeError(f"spatial_quant kernel launch failed: CUDA error {rc}")
     spatial_quantize.launches += 1
     return out
 

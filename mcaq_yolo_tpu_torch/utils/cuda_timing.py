@@ -1,8 +1,8 @@
 """
 Device timing with CUDA events, and the kernels' bounds.
 
-Shared by `chip_smoke.py` and `ops/spatial_quant_ab.py`, so that both read
-a kernel the same way.  Every function here needs a CUDA device.
+`chip_smoke.py`'s kernel tables and the port's diagnostic scripts read the
+card through these.  Every function here needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -30,10 +30,9 @@ SLEEP_CYCLES = 20_000_000
 
 
 def cuda_ms(fn, reps: int = 21, inner: int = 1, warmup: int = 3,
-            device_only: bool = False, quartiles: bool = False):
+            device_only: bool = False) -> float:
     """Median over `reps` of the time per call of fn(k), k = 0 .. inner-1
-    called back to back between two CUDA events; with `quartiles`, the
-    (25th, 50th, 75th) percentiles instead.
+    called back to back between two CUDA events.
 
     device_only: the calls are queued behind a device-side sleep issued
     before the first event, so the card runs them without waiting on the
@@ -55,8 +54,6 @@ def cuda_ms(fn, reps: int = 21, inner: int = 1, warmup: int = 3,
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
-    if quartiles:
-        return tuple(statistics.quantiles(times, n=4))
     return statistics.median(times)
 
 

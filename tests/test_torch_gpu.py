@@ -166,7 +166,7 @@ def test_kernel_entry_refuses_a_wrong_geometry(cuda):
     x, bit_map, _ = _inputs(cuda, B, H, W, C, Ht, Wt, seed=3)
     lo, hi = x.amin(dim=(0, 1, 2)).contiguous(), x.amax(dim=(0, 1, 2)).contiguous()
     geo = sq.launch_geometry(B, H, W, C, 4)
-    fn = sq._kernel()
+    fn = sq._ENTRY.fn()
     table = torch.empty((2, sq.N_BITS, C), device=cuda)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream().cuda_stream

@@ -12,6 +12,7 @@ continuous random maps do not give).  The kernel itself is held to its plain
 version on the card (`tests/test_torch_gpu.py`, `chip_smoke.py`).
 """
 
+import ctypes
 import itertools
 
 import jax.numpy as jnp
@@ -231,9 +232,9 @@ def test_block_path_grid(tile, n_tiles):
 def test_warp_path_has_no_block_barrier():
     """Structural, a search of the source text between the two paths'
     section comments: the warp path (tiles up to 8 x 8) synchronizes only
-    within a warp, with no __syncthreads and no shared memory.  (The
-    resource dump of `ops/morph_tiles_ab.py` shows its instances' shared
-    memory and stack on the card.)"""
+    within a warp, with no __syncthreads and no shared memory.  (On the
+    card, `cuobjdump --dump-resource-usage` of the built library shows its
+    instances' shared memory and stack.)"""
     src = build._source_and_flags("morph_tiles")[0].read_text()
     start = src.index("// ---- warp path")
     body = src[start:src.index("// ---- block path", start)]
@@ -303,9 +304,50 @@ def test_build_flags_per_kernel():
     assert build._source_and_flags("morph_tiles")[1] == build.nvcc_flags("morph_tiles")
     assert build._source_and_flags("spatial_quant")[1] == (
         "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v") == build.NVCC_FLAGS
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
     assert build._source_and_flags("morph_tiles")[0].is_file()
     assert build.library_path("morph_tiles").name.startswith("libmorph_tiles-")
+
+
+def test_entry_launches_on_the_current_stream_and_raises_on_a_cuda_error(monkeypatch):
+    """The launch seam of the three kernels (`build.Entry`): the C function
+    gets the device's current raw stream last (or the stream given), the
+    device is made current only when it is not, and a nonzero return raises
+    RuntimeError naming the kernel.  The C function and torch's CUDA calls
+    are stand-ins, so this runs without a card."""
+    from mcaq_yolo_tpu_torch.ops import bn_silu
+    from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
+
+    assert [(e.kernel, e.library, e.symbol) for e in (sq._ENTRY, tlanes._ENTRY, bn_silu._ENTRY)] \
+        == [("spatial_quant", "spatial_quant", "mcaq_spatial_quant"),
+            ("phi_tiles", "morph_tiles", "mcaq_phi_tiles"), ("bn_silu", "bn_silu", "mcaq_bn_silu")]
+    assert all(e.argtypes[-1] is ctypes.c_void_p and e.restype is ctypes.c_int
+               for e in (sq._ENTRY, tlanes._ENTRY, bn_silu._ENTRY))
+    calls, made_current, rc = [], [], [0]
+    entry = build.Entry("some_kernel", "morph_tiles", "mcaq_phi_tiles", [ctypes.c_int])
+    entry._fn = lambda *args: calls.append(args) or rc[0]
+
+    class Current:
+        def __init__(self, index):
+            made_current.append(index)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 100 + i, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0, raising=False)
+    monkeypatch.setattr(torch.cuda, "device", Current)
+    entry.launch(0, 7)
+    assert calls == [(7, 100)] and made_current == []
+    entry.launch(1, 8, 9)
+    entry.launch(1, 8, stream=5)
+    assert calls[1:] == [(8, 9, 101), (8, 5)] and made_current == [1, 1]
+    rc[0] = 700
+    with pytest.raises(RuntimeError, match="^some_kernel kernel launch failed: CUDA error 700$"):
+        entry.launch(0, 7)
 
 
 def test_bound_counts():
