@@ -45,6 +45,19 @@ Phases (any failure exits non-zero and prints no result):
      yardstick and the plain version; the port calls it off the card);
      every later path reads the kernel's launches beside the phi kernel's,
      one a ConvBnSiLU of every eval forward (the KD teacher's in training);
+  2d. the training quantize's kernel pair (csrc/frac_quant.cu) at the
+     training cell's three maps (YOLOv8m at 640 px, ds 1, bs 64, bfloat16,
+     the soft mask on): forward and grad x bitwise the plain path's
+     (compose_fractional with autograd), grad frac and grad mask within
+     1e-5 relative L2, 2 launches a map; then the device ms of the forward
+     (without gradient), of the backward (autograd.grad on a kept graph)
+     and of the plain path's forward + backward, each map over 8 distinct
+     copies where it is smaller than the L2 cache, beside the bytes' bound
+     at 3.35 TB/s; every later path reads the pair's launches beside the
+     phi kernel's: 0 on an eval, calibration or serving path, a forward and
+     a backward a quantizer in each quantized training step on the card
+     (12 in phase 5's two Stage-3 steps, 6 in its CUDA-versus-CPU step,
+     6 a step from Stage 2 on in phase 6's training from disk);
   3. the deployed program: a seeded random MCAQ-YOLOv8n (nc=80, MLP bit
      mapper, softplus) written as a flax msgpack checkpoint + meta, served
      by `Predictor(model_path)` at 640 px in bfloat16 (pool 256, conf 0.25,
@@ -177,7 +190,8 @@ Phases (any failure exits non-zero and prints no result):
      committed record is put back after.
 
 Output: JSON lines; before the last, the `{"kernels": [...]}` summary
-(spatial_quant, phi_tiles and bn_silu, each with `launches_by_path`); the
+(spatial_quant, phi_tiles, bn_silu and frac_quant, each with
+`launches_by_path`); the
 last line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or outside the repository, it exits 2.
 """
@@ -198,8 +212,15 @@ PHI_SOURCE = "mcaq_yolo_tpu_torch/csrc/morph_tiles.cu"
 PHI_REPLACES = "mcaq_yolo_tpu/core/morphology_lanes.py:395"
 PHI_LAUNCHES = {}  # path -> phi_tiles launches in that path's run
 BN_SILU_SOURCE = "mcaq_yolo_tpu_torch/csrc/bn_silu.cu"
+FRAC_QUANT_SOURCE = "mcaq_yolo_tpu_torch/csrc/frac_quant.cu"
+# (scale, H = W, C, Ht = Wt) of phase 2d: the training cell's maps, YOLOv8m
+# at 640 px, ds 1, and its batch
+FRAC_QUANT_MAPS = (("P3", 80, 192, 10), ("P4", 40, 384, 10), ("P5", 20, 576, 5))
+FRAC_QUANT_BATCH = 64
 BN_SILU_LAUNCHES = {}  # path -> bn_silu launches in that path's run
 _BN_SILU_BASE = [0]  # the counter `bn_silu` at the last `zero_launches`
+FRAC_QUANT_LAUNCHES = {}  # path -> frac_quant launches in that path's run
+_FRAC_QUANT_BASE = [0]  # the counter `frac_quant` at the last `zero_launches`
 # (variant, dtype, batch) of phase 2c: the serving cells' forwards and the
 # training cell's float32 teacher
 BN_SILU_FORWARDS = (("yolov8n", "bfloat16", 256), ("yolov8m", "bfloat16", 256),
@@ -222,25 +243,29 @@ def check(cond: bool, msg: str) -> None:
 
 
 def zero_launches() -> None:
-    """The kernels' launch counts set to 0 (bn_silu's: its counter noted),
-    just before a path runs."""
+    """The kernels' launch counts set to 0 (bn_silu's and frac_quant's:
+    their counters noted), just before a path runs."""
     from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
-    from mcaq_yolo_tpu_torch.ops import bn_silu
+    from mcaq_yolo_tpu_torch.ops import bn_silu, frac_quant
     from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
 
     sq.spatial_quantize.launches = 0
     ml.phi_tiles.launches = 0
     _BN_SILU_BASE[0] = bn_silu.launches()
+    _FRAC_QUANT_BASE[0] = frac_quant.launches()
 
 
-def phi_launches(path: str, expected=None, bn=None) -> int:
+def phi_launches(path: str, expected=None, bn=None, fq=0) -> int:
     """The phi kernel's launches since `zero_launches`, recorded as `path`'s;
     held to `expected` when given, else to at least one.  The eval
     BatchNorm + SiLU kernel's launches since then are recorded beside them,
     and held to `bn` when given (one a ConvBnSiLU of every eval forward on
-    the card, `conv_bn_silu_modules`)."""
+    the card, `conv_bn_silu_modules`); so are the training quantize's, held
+    to `fq` (default 0: an eval, calibration or serving path runs none; a
+    training step on the card runs 6, a forward and a backward for each of
+    the three quantizers, once quantization is on)."""
     from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
-    from mcaq_yolo_tpu_torch.ops import bn_silu
+    from mcaq_yolo_tpu_torch.ops import bn_silu, frac_quant
 
     n = PHI_LAUNCHES[path] = ml.phi_tiles.launches
     check(n == expected if expected is not None else n > 0,
@@ -249,6 +274,8 @@ def phi_launches(path: str, expected=None, bn=None) -> int:
     b = BN_SILU_LAUNCHES[path] = bn_silu.launches() - _BN_SILU_BASE[0]
     check(bn is None or b == bn,
           f"{path}: the bn_silu kernel launched {b} times (expected {bn})")
+    f = FRAC_QUANT_LAUNCHES[path] = frac_quant.launches() - _FRAC_QUANT_BASE[0]
+    check(f == fq, f"{path}: the frac_quant kernels launched {f} times (expected {fq})")
     return n
 
 
@@ -679,6 +706,98 @@ def bn_silu_kernel_entry(rows) -> dict:
             "ms": n["ms"], "plain_ms": n["library_ms"], "bound_ms": n["bound_ms"],
             "bound_by": n["bound_by"], "library_ms": n["library_ms"],
             "launches_by_path": dict(BN_SILU_LAUNCHES)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 2d
+# ---------------------------------------------------------------------------
+
+
+def phase_frac_quant(device, batch: int = FRAC_QUANT_BATCH) -> list:
+    """The training quantize's kernel pair at the training cell's three maps
+    in bfloat16 with the soft mask: held to the plain path, then timed
+    (module docstring, 2d).  One row a map."""
+    import torch
+
+    from mcaq_yolo_tpu_torch.ops import frac_quant as fq
+    from mcaq_yolo_tpu_torch.utils.cuda_timing import (COPIES, FRAC_QUANT_OPS_PER_ELEMENT,
+                                                       L2_BYTES, bound_ms, cuda_ms,
+                                                       frac_quant_bytes)
+
+    def rel_l2(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+    rows = []
+    for k, (scale, H, C, Ht) in enumerate(FRAC_QUANT_MAPS):
+        g = torch.Generator(device=device).manual_seed(k)
+        x = (torch.randn(batch, H, H, C, generator=g, device=device) * 1.5).to(torch.bfloat16)
+        bits = torch.rand(batch, Ht, Ht, generator=g, device=device) * 6.0 + 2.0
+        lo, hi = (t.contiguous() for t in torch.aminmax(x.reshape(-1, C).float(), dim=0))
+        mask = torch.rand(batch, H, H, 1, generator=g, device=device)
+        up = torch.randn(x.shape, generator=g, device=device).to(torch.bfloat16)
+        x.requires_grad_(True), bits.requires_grad_(True), mask.requires_grad_(True)
+
+        def fwd_bwd(fn, xi, upi):
+            out = fn(xi, bits, lo, hi, mask)
+            return (out,) + torch.autograd.grad(out, (xi, bits, mask), upi)
+
+        before = fq.launches()
+        got, ref = fwd_bwd(fq.frac_quantize, x, up), fwd_bwd(fq.frac_quantize_torch, x, up)
+        torch.cuda.synchronize()
+        check(fq.launches() == before + 2, f"frac_quant {scale}: not 2 launches counted")
+        gaps = {"grad_frac_rel_l2": rel_l2(got[2], ref[2]),
+                "grad_mask_rel_l2": rel_l2(got[3], ref[3]),
+                "max_abs_err": max(float((a.double() - b.double()).abs().max())
+                                   for a, b in zip(got, ref))}
+        check(torch.equal(got[0].view(torch.int16), ref[0].view(torch.int16))
+              and torch.equal(got[1], ref[1])
+              and max(gaps["grad_frac_rel_l2"], gaps["grad_mask_rel_l2"]) <= 1e-5,
+              f"frac_quant {scale}: not the plain path ({gaps})")
+        del got, ref
+        # a map under the L2 cache's size is timed over COPIES distinct
+        # copies in turn, so no launch finds its map in the cache
+        copies = COPIES if x.numel() * x.element_size() < L2_BYTES else 1
+        xs = [x.detach().clone().requires_grad_(True) for _ in range(copies)]
+        ups = [up.clone() for _ in range(copies)]
+        with torch.no_grad():
+            fwd = cuda_ms(lambda i: fq.frac_quantize(xs[i % copies], bits, lo, hi, mask),
+                          reps=5, inner=max(copies, 5), warmup=1, device_only=True)
+        outs = [fq.frac_quantize(xi, bits, lo, hi, mask) for xi in xs]
+        bwd = cuda_ms(lambda i: torch.autograd.grad(outs[i % copies], (xs[i % copies], bits, mask),
+                                                    ups[i % copies], retain_graph=True),
+                      reps=5, inner=max(copies, 5), warmup=1, device_only=True)
+        del outs
+        plain = cuda_ms(lambda i: fwd_bwd(fq.frac_quantize_torch, xs[i % copies], ups[i % copies]),
+                        reps=5, inner=max(copies, 5), warmup=1, device_only=True)
+        del xs, ups
+        row = {"scale": scale, "shape": [batch, H, H, C], "tile": H // Ht, "fwd_ms": fwd,
+               "bwd_ms": bwd, "ms": fwd + bwd, "plain_ms": plain, **gaps}
+        for d, ms in (("fwd", fwd), ("bwd", bwd)):
+            direction = "forward" if d == "fwd" else "backward"
+            b, by = bound_ms(frac_quant_bytes(x, bits, direction),
+                             x.numel() * FRAC_QUANT_OPS_PER_ELEMENT[direction])
+            row[f"{d}_bound_ms"], row[f"{d}_bound_by"] = b, by
+            row[f"{d}_share_of_bound"] = b / ms
+        row["bound_ms"] = row["fwd_bound_ms"] + row["bwd_bound_ms"]
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        torch.cuda.empty_cache()
+        emit({"phase": "frac_quant", **row})
+        rows.append(row)
+    return rows
+
+
+def frac_quant_kernel_entry(rows) -> dict:
+    """The training quantize's entry of the `kernels` line: the forward and
+    backward device time over the training cell's three maps (phase 2d),
+    that work's bound, the plain path's forward + backward, the largest gap
+    to the plain path phase 2d measured (output and the three gradients),
+    and the launches each path counted (phase 5's training run's first)."""
+    return {"name": "frac_quant", "route": "cuda", "source": FRAC_QUANT_SOURCE,
+            "replaces": None, "launches": FRAC_QUANT_LAUNCHES.get("training"),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
+            "library_ms": None, "launches_by_path": dict(FRAC_QUANT_LAUNCHES)}
 
 
 # ---------------------------------------------------------------------------
@@ -1122,8 +1241,10 @@ def phase_training(device, workdir: Path, img: int = IMG, batch: int = TRAIN_BAT
         torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_launches = sq.spatial_quantize.launches
-    # 3 one-batch epochs, 3 scales; the float32 KD teacher's eval forward a step
-    train_phi = phi_launches("training", 3 * 3, bn=3 * conv_bn_silu_modules(trainer.teacher))
+    # 3 one-batch epochs, 3 scales; the float32 KD teacher's eval forward a
+    # step; the 2 Stage-3 steps' training quantize, forward and backward
+    train_phi = phi_launches("training", 3 * 3, bn=3 * conv_bn_silu_modules(trainer.teacher),
+                             fq=2 * 3 * 2)
     grads = _grad_groups(trainer.model)
     grad_norms = {k: float(v.norm()) for k, v in grads.items()}
     num_batches = [int(q.num_batches) for q in trainer.model.quantizers]
@@ -1196,6 +1317,7 @@ def phase_step_cuda_vs_cpu(device, img: int = 128, batch: int = 2):
     from mcaq_yolo_tpu_torch.models.losses import MCAQYOLOLoss
     from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
     from mcaq_yolo_tpu_torch.models.yolo import YOLOv8
+    from mcaq_yolo_tpu_torch.ops import frac_quant
     from mcaq_yolo_tpu_torch.train import Optimizer, make_train_step
 
     check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
@@ -1208,8 +1330,15 @@ def phase_step_cuda_vs_cpu(device, img: int = 128, batch: int = 2):
         teacher = YOLOv8("yolov8n", 80, device=dev, seed=1)
         step = make_train_step(model, MCAQYOLOLoss(80, 4.0), teacher)
         opt = Optimizer(model, lambda s: 0.0)  # lr 0: the weights stay
+        f0 = frac_quant.launches()
         m = step(opt, {k: torch.from_numpy(v).to(dev) for k, v in data.items()}, 1.0, 4.0,
                  0.05, 0.1, 0.5, 1e-4, quantize=True, use_kd=True)
+        launched = frac_quant.launches() - f0
+        # the kernels on the card only: a forward and a backward a quantizer
+        check(launched == (6 if dev.type == "cuda" else 0),
+              f"step on {dev.type}: the frac_quant kernels launched {launched} times")
+        if dev.type == "cuda":
+            FRAC_QUANT_LAUNCHES["step_cuda_vs_cpu"] = launched
         # the step clipped the gradients to norm 1; scale them back
         runs[dev.type] = ({k: float(m[k]) for k in LOSS_KEYS},
                           _grad_groups(model, max(float(m["grad_norm"]), 1.0)))
@@ -1406,7 +1535,10 @@ def phase_train_from_disk(device, workdir: Path, gpu: str, img: int = IMG,
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = sq.spatial_quantize.launches
-    phi_launches("train_from_disk")
+    # the training quantize: a forward and a backward of the 3 quantizers
+    # in every step from Stage 2 on
+    phi_launches("train_from_disk", fq=6 * sum(h["batches"] for h in trainer.history
+                                                if h["stage"] >= 2))
     for name, (_, _, n_phi) in counts.items():
         PHI_LAUNCHES[name] = n_phi
         check(n_phi > 0, f"{name}: the phi kernel never launched")
@@ -2905,9 +3037,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if not all((ROOT / src).is_file() for src in (KERNEL_SOURCE, PHI_SOURCE, BN_SILU_SOURCE)):
-        print(f"chip_smoke: {KERNEL_SOURCE}, {PHI_SOURCE} or {BN_SILU_SOURCE} not found; "
-              "run from the repository", file=sys.stderr)
+    sources = (KERNEL_SOURCE, PHI_SOURCE, BN_SILU_SOURCE, FRAC_QUANT_SOURCE)
+    if not all((ROOT / src).is_file() for src in sources):
+        print(f"chip_smoke: one of {', '.join(sources)} not found; run from the repository",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     device = torch.device("cuda")
@@ -2929,6 +3062,8 @@ def main() -> int:
     lap("2b_phi_vs_plain")
     bn_rows = phase_bn_silu(device)
     lap("2c_bn_silu")
+    fq_rows = phase_frac_quant(device)
+    lap("2d_frac_quant")
     scratch = ROOT / "build"  # gitignored; the run writes nothing outside the checkout
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
@@ -2968,7 +3103,8 @@ def main() -> int:
         "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
         "library_ms": None,
         "launches_by_path": dict(deployed=launches, **path_launches),
-    }, phi_kernel_entry(phi_rows, phi_worst), bn_silu_kernel_entry(bn_rows)]})
+    }, phi_kernel_entry(phi_rows, phi_worst), bn_silu_kernel_entry(bn_rows),
+        frac_quant_kernel_entry(fq_rows)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

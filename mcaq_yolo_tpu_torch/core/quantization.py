@@ -29,7 +29,11 @@ Training (continuous bit map): fractional-bit composition of the seven
 per-bit fake quantizations with the straight-through estimator, so the
 detection and distillation gradients reach the bit mapper through the
 quantizer and the soft mask is trained.  The reference runs this in XLA,
-not in its Pallas kernel; here it is PyTorch ops with autograd.
+not in its Pallas kernel.  Here `ops.frac_quant.frac_quantize` runs it: on
+CUDA tensors a hand-written kernel pair (forward and backward, one pass
+each) behind an autograd Function, on CPU tensors `compose_fractional`
+below with autograd.  The quantizer's `backend` picks the eval quantize
+only.
 
 `LearnedRoundingQuantization` (AdaRound-style, inference only) is kept for
 parity with the reference, which never trains it either.
@@ -37,8 +41,8 @@ parity with the reference, which never trains it either.
 `data_group` (set by `parallel.mesh.reduced_over`; None = one rank): every
 range taken from the batch is the global batch's over the ranks of the
 group, as under the JAX package's `jit`: the per-channel min/max (the EMA
-step and the range the kernel quantizes with) by exact MIN / MAX
-collectives, the entropy histogram over the global [min, max] with its
+step and the range the kernel quantizes with, one pass over x for both) by
+exact MIN / MAX collectives, the entropy histogram over the global [min, max] with its
 counts summed, the percentiles of the gathered values, the MSE grid's
 errors summed.  The frozen and running-statistics ranges need no
 collective; the batch min/max is still reduced there (it is selected on
@@ -55,7 +59,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import initializers as init
-from ..ops import spatial_quant
+from ..ops import frac_quant, spatial_quant
 from ..parallel.mesh import all_gather_cat, all_max, all_min, all_sum, group_size
 from . import image_ops as iops
 from .ste import clip, ste
@@ -288,17 +292,19 @@ class SpatialAdaptiveQuantization(nn.Module):
             self.register_buffer("histogram", torch.zeros(HISTOGRAM_BINS))
         self.soft_mask = LearnedSoftMask() if smooth_transitions else None
 
+    @torch.no_grad()
     def _batch_minmax(self, x: torch.Tensor):
         lo, hi = torch.aminmax(x.reshape(-1, x.shape[-1]), dim=0)
         lo, hi = lo.to(torch.float32), hi.to(torch.float32)
         return all_min(lo, self.data_group), all_max(hi, self.data_group)
 
     @torch.no_grad()
-    def ema_update(self, x: torch.Tensor) -> None:
+    def ema_update(self, x: torch.Tensor, batch=None) -> None:
         """One EMA step of the running min/max from x's batch min/max (and,
         in 'entropy' mode, of the histogram): the first batch is taken
-        as-is, a frozen quantizer keeps its state."""
-        bx_min, bx_max = self._batch_minmax(x)
+        as-is, a frozen quantizer keeps its state.  `batch`: x's
+        `_batch_minmax`, where the caller has it."""
+        bx_min, bx_max = self._batch_minmax(x) if batch is None else batch
         first = self.num_batches == 0
         keep = self.frozen
         m = EMA_MOMENTUM
@@ -315,13 +321,14 @@ class SpatialAdaptiveQuantization(nn.Module):
             self.histogram.copy_(torch.where(keep, self.histogram, new_hist))
 
     @torch.no_grad()
-    def calibration_range(self, x: torch.Tensor, training: bool = False):
+    def calibration_range(self, x: torch.Tensor, training: bool = False, batch=None):
         """The range of the active mode: per-channel (x_min, x_max), each
-        (C,) float32, or in 'mse' mode per-bit rows, each (7, 1)."""
+        (C,) float32, or in 'mse' mode per-bit rows, each (7, 1).  `batch`:
+        x's `_batch_minmax`, where the caller has it."""
         C = x.shape[-1]
         mode = self.calibration_mode
         if mode == "minmax":
-            bx_min, bx_max = self._batch_minmax(x)
+            bx_min, bx_max = self._batch_minmax(x) if batch is None else batch
             use_running = self.num_batches > 0
             if not training:
                 use_running = use_running & self.frozen
@@ -353,17 +360,18 @@ class SpatialAdaptiveQuantization(nn.Module):
         x's dtype and layout."""
         if update_stats is None:
             update_stats = training
+        batch = None   # one min/max pass over x serves the EMA step and the range
         if update_stats:
-            self.ema_update(x)
+            batch = self._batch_minmax(x)
+            self.ema_update(x, batch)
         if training:
-            xf = x.to(torch.float32)
-            x_min, x_max = self.calibration_range(xf, training=True)
-            x_q = compose_fractional(xf, bit_map, x_min, x_max)
+            x_min, x_max = self.calibration_range(x, training=True, batch=batch)
+            mask = None
             if self.soft_mask is not None:
-                x_q = x_q * self.soft_mask(bit_map, xf)
-            return x_q.to(x.dtype)
+                mask = self.soft_mask(bit_map, x)
+            return frac_quant.frac_quantize(x, bit_map, x_min, x_max, mask)
         with torch.no_grad():
-            x_min, x_max = self.calibration_range(x)
+            x_min, x_max = self.calibration_range(x, batch=batch)
             mask = None
             if self.soft_mask is not None:
                 mask = self.soft_mask(bit_map, x)[..., 0]

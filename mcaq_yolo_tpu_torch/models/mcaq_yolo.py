@@ -61,9 +61,10 @@ class MCAQYOLO(nn.Module):
     the convolution weights are cast once).  For bfloat16 training keep
     float32 and run the forward under `torch.autocast`: the MCAQ transform
     turns autocast off, so the MCAQ math always runs in float32, and the
-    quantizer returns the feature's dtype.  `quant_backend`: 'auto' = the
-    CUDA kernel on CUDA tensors and its plain version on the CPU; 'torch' =
-    always the plain version.
+    quantizer returns the feature's dtype.  `quant_backend` picks the eval
+    quantize: 'auto' = the CUDA kernel on CUDA tensors and its plain version
+    on the CPU; 'torch' = always the plain version.  Training always runs
+    `ops/frac_quant.py:frac_quantize` (the kernel pair on the card).
     The model is built on `device` (default CUDA; raises without one) with
     a seeded random init, in eval mode.  `morph_tile_engine` is the
     analyzer's tile engine: 'lanes' (the default) computes phi with the

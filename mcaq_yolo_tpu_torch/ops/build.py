@@ -42,7 +42,7 @@ def build_dir(root: Path) -> Path:
 
 
 BUILD_DIR = build_dir(Path(__file__).resolve().parents[2])
-KERNELS = ("spatial_quant", "morph_tiles", "bn_silu")  # CUDA sources, built by nvcc
+KERNELS = ("spatial_quant", "morph_tiles", "bn_silu", "frac_quant")  # CUDA sources, built by nvcc
 HOST_LIBRARIES = ("dataio",)  # C++ sources, built by g++
 
 # each kernel's own flags go between the target and the link flags; every
@@ -51,7 +51,7 @@ HOST_LIBRARIES = ("dataio",)  # C++ sources, built by g++
 NVCC_TARGET = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 NVCC_LINK = ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNEL_FLAGS = {"spatial_quant": ("-fmad=false",), "morph_tiles": ("--fmad=false",),
-                "bn_silu": ("--fmad=false",)}
+                "bn_silu": ("--fmad=false",), "frac_quant": ("--fmad=false",)}
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _libs: Dict[str, ctypes.CDLL] = {}

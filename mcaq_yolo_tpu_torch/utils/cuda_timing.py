@@ -20,6 +20,12 @@ QUANT_OPS_PER_ELEMENT = 8
 # per element of eval BatchNorm + SiLU: subtract, multiply, multiply-add (2),
 # exp, add, divide
 BN_SILU_OPS_PER_ELEMENT = 7
+# per element of the training quantize (csrc/frac_quant.cu), two fake
+# quantizations of 9 (divide, add, rint, 2 clamps, subtract, multiply and
+# the straight-through subtract and add) and, forward, the blend (3) and
+# the mask (1); backward, the mask, grad x (3), the blend (3) and the two
+# sums' products and adds (5)
+FRAC_QUANT_OPS_PER_ELEMENT = {"forward": 22, "backward": 30}
 # distinct copies of a kernel's inputs cycled in one timed round: at the
 # yolov8n scales their working set exceeds the 50 MB L2
 COPIES = 8
@@ -82,6 +88,18 @@ def bn_silu_bytes(numel: int, element_size: int, channels: int) -> int:
     read once and written once, the four per-channel float32 vectors read
     once."""
     return 2 * numel * element_size + 4 * channels * 4
+
+
+def frac_quant_bytes(x, bit_map, direction: str) -> int:
+    """Bytes one pass of the training quantize over x (B, H, W, C) must move,
+    with the soft mask: forward x read and the output written, the mask and
+    the bit map read; backward x and its gradient read, grad x written, the
+    mask read and its gradient written, the bit map read and its gradient
+    written.  The 2 x 7 x C table is noise."""
+    pixels = x.numel() // x.shape[-1]
+    if direction == "forward":
+        return 2 * x.numel() * x.element_size() + pixels * 4 + bit_map.numel() * 4
+    return 3 * x.numel() * x.element_size() + 2 * pixels * 4 + 2 * bit_map.numel() * 4
 
 
 def bound_ms(n_bytes: int, n_ops: int):

@@ -114,7 +114,10 @@ def trace(log_dir: Optional[str] = None):
 #
 # `count(name, n)` adds to a plain dict of ints (`counters()`), always; while
 # a capture is active the count is also attached to the innermost open span,
-# so `span_summary()` can give it per root span.  The program's counters:
+# so `span_summary()` can give it per root span (a count made on another
+# thread than the spans', such as autograd's worker thread that runs a
+# backward on the card, names the stack it belongs to: `span_stack()`).
+# The program's counters:
 #   host_syncs   one at every site of the deployed program and the train
 #                step where the host waits for the card (a pageable copy to
 #                the card, a read of a device value); each site runs inside
@@ -124,6 +127,9 @@ def trace(log_dir: Optional[str] = None):
 #   nms_sweeps   the keep sweeps of `ops/nms.py:keep_fixed_point`.
 #   bn_silu      the launches of the eval BatchNorm + SiLU kernel
 #                (`ops/bn_silu.py`), one a ConvBnSiLU on the card in eval.
+#   frac_quant   the launches of the training quantize's kernels
+#                (`ops/frac_quant.py`), one a forward and one a backward of
+#                each quantizer trained on the card.
 # The two older kernels' launch counters stay where they are
 # (`spatial_quantize.launches`, `phi_tiles.launches`); `counters()` reports
 # them beside these.
@@ -226,16 +232,26 @@ def span(name: str, **attrs):
     return _NULL
 
 
-def count(name: str, n: int = 1) -> None:
+def span_stack() -> list:
+    """The calling thread's open spans, innermost last.  An autograd
+    Function's forward keeps it for its backward, which on the card runs on
+    autograd's worker thread: `count(..., stack=...)` there counts into the
+    span open on the forward's thread, which waits in `backward()`."""
+    return _stack()
+
+
+def count(name: str, n: int = 1, stack: Optional[list] = None) -> None:
     """Add n to the counter `name`, and to the innermost open span while a
-    capture records (nothing under torch.compile / torch.export)."""
+    capture records (nothing under torch.compile / torch.export): the
+    calling thread's, or that of `stack` (from `span_stack()` on another
+    thread).  A thread with no span open and no `stack` counts into no span."""
     if torch.compiler.is_compiling():
         return
     _COUNTERS[name] = _COUNTERS.get(name, 0) + n
     if torch.autograd.profiler._is_profiler_enabled:
-        st = _stack()
-        if st:
-            st[-1].counts[name] = st[-1].counts.get(name, 0) + n
+        top = (_stack() if stack is None else stack)[-1:]   # one read: its owner may pop
+        if top:
+            top[0].counts[name] = top[0].counts.get(name, 0) + n
 
 
 def counters() -> Dict[str, int]:

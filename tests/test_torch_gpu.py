@@ -54,6 +54,14 @@ span's stream time covers the device time of the kernels launched inside
 it, and the program's annotations in the profiler's trace match the span
 summary's names and counts.
 
+The training quantize (`csrc/frac_quant.cu`, `ops/frac_quant.py`): at
+m-train-bs64's three maps, an odd C, a non-multiple tile grid and mse's
+per-bit rows, in float32 and bfloat16, with and without the mask, the
+forward and grad x are bitwise the plain path's, grad frac and grad mask
+within 1e-5 relative L2, a second run bitwise the first; the wrapper and
+its C entries refuse what they do not take; a bf16 train step counts 6
+launches inside its root span.
+
 YOLO11 (`models/layers.py`): the deployed YOLO11l at bs 8 and 640 px is
 bitwise its path with every ConvBnSiLU on F.batch_norm + F.silu, and one
 call launches the BatchNorm + SiLU kernel once a ConvBnSiLU with SiLU (159)
@@ -1023,3 +1031,163 @@ def test_depthwise_conv_bn_silu_through_the_kernel_is_bitwise(cuda, monkeypatch,
         monkeypatch.setattr(bs, "takes", lambda x, bn: False)
         plain = m(x)
     assert torch.equal(out.view(torch.int16), plain.view(torch.int16))
+
+
+# ---------------------------------------------------------------------------
+# The training quantize's kernel pair (csrc/frac_quant.cu, ops/frac_quant.py)
+# ---------------------------------------------------------------------------
+
+
+def _frac_case(device, B, H, W, C, Ht, Wt, dtype, mse, seed):
+    from mcaq_yolo_tpu_torch.core.quantization import calibrate_mse
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(B, H, W, C, generator=g, device=device) * 1.5 + 0.2).to(dtype)
+    bits = torch.rand(B, Ht, Wt, generator=g, device=device) * 6.0 + 2.0
+    bits.view(-1)[::5] = 2.0   # exact bit widths, the top one among them
+    bits.view(-1)[1::5] = 8.0
+    bits.view(-1)[2::7] = 5.0
+    if mse:
+        lo, hi = calibrate_mse(x.float())
+    else:
+        lo, hi = torch.aminmax(x.reshape(-1, C).float(), dim=0)
+    mask = torch.rand(B, H, W, 1, generator=g, device=device)
+    up = torch.randn(B, H, W, C, generator=g, device=device).to(dtype)
+    return x, bits, lo.contiguous(), hi.contiguous(), mask, up
+
+
+def _frac_run(fn, x, bits, lo, hi, mask, up):
+    """fn's output and its gradients to x, the bit map and the mask."""
+    xt, bt = x.clone().requires_grad_(True), bits.clone().requires_grad_(True)
+    m = mask.clone().requires_grad_(True) if mask is not None else None
+    out = fn(xt, bt, lo, hi, m)
+    out.backward(up)
+    return out.detach(), xt.grad, bt.grad, (m.grad if m is not None else None)
+
+
+def _rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_mask", [True, False])
+@pytest.mark.parametrize("shape,mse", [
+    ((64, 80, 80, 192, 10, 10), False),   # m-train-bs64's P3 (ds 1: tiles of 8 x 8)
+    ((64, 40, 40, 384, 10, 10), False),   # its P4 (4 x 4)
+    ((64, 20, 20, 576, 5, 5), False),     # its P5 (4 x 4)
+    ((8, 40, 40, 384, 10, 10), True),     # mse's per-bit rows (7, 1)
+    ((4, 16, 16, 6, 4, 4), False),        # odd C: element by element
+    ((3, 12, 10, 64, 5, 3), False),       # non-multiple tile grid
+])
+def test_frac_quant_kernel_equals_plain(cuda, dtype, with_mask, shape, mse):
+    """The kernel pair against the plain path on the card: the forward and
+    grad x bitwise, grad frac and grad mask within 1e-5 relative L2 (sums
+    in another order), 2 launches (forward, backward), and a second run's
+    gradients bitwise the first's (no atomics)."""
+    from mcaq_yolo_tpu_torch.ops import frac_quant as fq
+
+    x, bits, lo, hi, mask, up = _frac_case(cuda, *shape, dtype, mse, seed=sum(shape))
+    mask = mask if with_mask else None
+    before = fq.launches()
+    out, gx, gb, gm = _frac_run(fq.frac_quantize, x, bits, lo, hi, mask, up)
+    torch.cuda.synchronize()
+    assert fq.launches() == before + 2
+    ref, rx, rb, rm = _frac_run(fq.frac_quantize_torch, x, bits, lo, hi, mask, up)
+    ibits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert out.dtype == dtype and torch.equal(out.view(ibits), ref.view(ibits))
+    assert gx.dtype == dtype and torch.equal(gx, rx)
+    assert float(rb.abs().max()) > 0 and _rel_l2(gb, rb) <= 1e-5
+    assert (gm is None) == (mask is None)
+    if mask is not None:
+        assert _rel_l2(gm, rm) <= 1e-5
+    yx, yb, ym = fq.frac_quant_backward_torch(x, up, bits, lo, hi, mask)
+    assert torch.equal(yx, gx) and _rel_l2(gb, yb) <= 1e-5
+    again = _frac_run(fq.frac_quantize, x, bits, lo, hi, mask, up)
+    for a, b in zip((out, gx, gb, gm), again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,C,Ht", [(80, 192, 10), (40, 384, 10), (20, 576, 5)])
+def test_soft_mask_of_a_bf16_map_is_that_of_its_float32_copy(cuda, H, C, Ht):
+    """The quantizer's training branch hands the soft mask x in bfloat16
+    (it reduces |x| in float32): on the card, at the training cell's three
+    maps (bs 64), the mask is bitwise that of x's float32 copy."""
+    from mcaq_yolo_tpu_torch.core.quantization import LearnedSoftMask
+
+    g = torch.Generator(device=cuda).manual_seed(H)
+    x = (torch.randn(64, H, H, C, generator=g, device=cuda) * 1.5).to(torch.bfloat16)
+    bits = torch.rand(64, Ht, Ht, generator=g, device=cuda) * 6.0 + 2.0
+    soft_mask = LearnedSoftMask()
+    soft_mask.init_weights(torch.Generator().manual_seed(0))
+    soft_mask = soft_mask.to(cuda)
+    assert torch.equal(soft_mask(bits, x), soft_mask(bits, x.to(torch.float32)))
+
+
+@pytest.mark.gpu
+def test_frac_quant_rejects_what_it_does_not_take(cuda):
+    from mcaq_yolo_tpu_torch.ops import frac_quant as fq
+
+    x, bits, lo, hi, mask, _ = _frac_case(cuda, 2, 16, 16, 64, 2, 2, torch.float32, False, 1)
+    fine = dict(x=x, bit_map=bits, x_min=lo, x_max=hi, mask=mask)
+    bad = [
+        dict(x=x.half()),                                        # dtype
+        dict(x=x.permute(0, 2, 1, 3)),                           # not contiguous
+        dict(bit_map=bits.double()),                             # bit map dtype
+        dict(bit_map=bits[:1]),                                  # bit map batch
+        dict(x_min=lo[:32], x_max=hi[:32]),                      # range width
+        dict(x_min=lo.expand(3, 64).contiguous(), x_max=hi.expand(3, 64).contiguous()),
+        dict(mask=mask[:, :8]),                                  # mask shape
+        dict(mask=mask.cpu()),                                   # mask device
+    ]
+    for change in bad:
+        with pytest.raises((TypeError, ValueError)):
+            fq.frac_quantize(**{**fine, **change})
+    # the C entry refuses a geometry that does not fit the map, launching nothing
+    out = torch.empty_like(x)
+    table = torch.empty(2, 7, 64, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for vec, lanes, threads in ((4, 32, 128), (3, 1, 128), (4, 8, 256), (4, 8, 48)):
+        rc = fq._FORWARD.fn()(x.data_ptr(), bits.data_ptr(), lo.data_ptr(), hi.data_ptr(), 0, 1,
+                              mask.data_ptr(), table.data_ptr(), out.data_ptr(), 0, 2, 16, 16,
+                              64, 2, 2, vec, lanes, threads, stream)
+        assert rc != 0, (vec, lanes, threads)
+
+
+@pytest.mark.gpu
+def test_train_step_counts_six_frac_quant_launches(cuda, tmp_path):
+    """One bf16 train step with quantize on: the three quantizers' forwards
+    and backwards launch the kernels 6 times, all counted inside the step's
+    root span: the backwards, which run on autograd's worker thread, in the
+    'train.backward' span open on the thread that ran the forwards."""
+    from mcaq_yolo_tpu_torch.data.synthetic import synthetic_batches
+    from mcaq_yolo_tpu_torch.models.losses import MCAQYOLOLoss
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+    from mcaq_yolo_tpu_torch.models.yolo import YOLOv8
+    from mcaq_yolo_tpu_torch.ops import frac_quant as fq
+    from mcaq_yolo_tpu_torch.train import Optimizer, make_train_step
+    from mcaq_yolo_tpu_torch.utils import profiling
+
+    batch = synthetic_batches(1, 2, 128, 4, max_boxes=8, boxes_per_image=(3, 6), seed=0)[0]
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    student = MCAQYOLO(num_classes=4, device=cuda, seed=0)
+    step = make_train_step(student, MCAQYOLOLoss(4, 4.0), YOLOv8("yolov8n", 4, device=cuda),
+                           amp_dtype=torch.bfloat16)
+    opt = Optimizer(student, lambda s: 1e-3)
+
+    def one_step():
+        return step(opt, batch, 4.85, 6.87, 0.0, 0.0, 0.5, 1e-4, quantize=True, use_kd=True)
+
+    one_step()  # warm-up
+    before = fq.launches()
+    with profiling.trace(str(tmp_path)):
+        metrics = one_step()
+    torch.cuda.synchronize()
+    assert fq.launches() == before + 6
+    root = profiling.span_summary()["by_root"]["train_step"]
+    assert root["count"] == 1 and root["counters"].get("frac_quant") == 6
+    backward = [r for r in profiling.span_records() if r["name"] == "train.backward"]
+    assert len(backward) == 1 and backward[0]["counts"].get("frac_quant") == 3
+    assert bool(torch.isfinite(metrics["loss_total"]))

@@ -1,6 +1,6 @@
 """The port's spans and counters (`utils/profiling.py`: `span`, `count`,
 `counters`, `span_summary`, `span_records`, `trace`'s `spans.json`) on the
-CPU, at 64 px and batch 2, and the benchmark's seven readers of them.
+CPU, at 64 px and batch 2, and the benchmark's readers of them.
 
   * With no profiler capture active a span records nothing, and the
     deployed program's outputs are bitwise those of a call under the
@@ -17,6 +17,9 @@ CPU, at 64 px and batch 2, and the benchmark's seven readers of them.
     boxes, each suppressing the next: k sweeps.
   * One train step records 'train_step' and its five phase spans, and
     calls `mark` with the same five names in the same order.
+  * A count made on a thread with no open span counts into no span, and
+    one given another thread's `span_stack()` (a backward on autograd's
+    worker thread) counts into that thread's innermost span.
   * Under torch.export a span and a count do nothing, even with a
     profiler active.
   * Each of the seven new per-layer readers (`perfbench/metrics/`) reads a
@@ -200,6 +203,48 @@ def test_train_step_spans_and_marks(traced_step):
     assert s["by_root"]["train_step"]["counters"] == {}   # no host sync, no other count
 
 
+def _count_on_another_thread(name: str, stack=None) -> None:
+    import threading
+
+    worker = threading.Thread(target=profiling.count, args=(name, 2),
+                              kwargs={"stack": stack})
+    worker.start()
+    worker.join(timeout=60)
+    assert not worker.is_alive()
+
+
+def test_count_on_a_thread_without_spans_counts_into_no_span():
+    """A thread with no open span of its own (a data producer, a second
+    server) counts into no span, though another thread has spans open."""
+    before = profiling.counters().get("from_spanless", 0)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.span("busy_root"):
+            with profiling.span("busy_child"):
+                _count_on_another_thread("from_spanless")
+    assert profiling.counters()["from_spanless"] == before + 2
+    recs = {r["name"]: r for r in profiling.span_records()}
+    assert recs["busy_child"]["counts"] == {} and recs["busy_root"]["counts"] == {}
+    assert profiling.span_summary()["by_root"]["busy_root"]["counters"] == {}
+
+
+def test_count_given_a_span_stack_goes_to_its_innermost_span():
+    """A count on another thread given this thread's `span_stack()` (a
+    backward on autograd's worker thread, from its forward) lands in the
+    innermost span open here, so its root counts it."""
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.span("waiting_root"):
+            stack = profiling.span_stack()
+            with profiling.span("waiting_child"):
+                _count_on_another_thread("from_worker", stack)
+            _count_on_another_thread("from_worker", stack)
+        _count_on_another_thread("from_worker", stack)   # nothing open: no span
+    recs = {r["name"]: r for r in profiling.span_records()}
+    assert recs["waiting_child"]["counts"] == {"from_worker": 2}
+    assert recs["waiting_root"]["counts"] == {"from_worker": 2}
+    root = profiling.span_summary()["by_root"]["waiting_root"]
+    assert root["count"] == 1 and root["counters"] == {"from_worker": 4}
+
+
 def test_export_under_a_profiler_holds_no_profiler_op():
     class Spanned(torch.nn.Module):
         def forward(self, x):
@@ -236,7 +281,8 @@ def test_serving_readers_on_a_cpu_summary(model, images, name, counter, tmp_path
 
 
 @pytest.mark.parametrize("name,counter", [("mcaq_stream_ms.train", False),
-                                          ("host_syncs.train", True)])
+                                          ("host_syncs.train", True),
+                                          ("frac_quant_launches.train", True)])
 def test_training_readers_on_a_cpu_summary(traced_step, name, counter):
     traced_step()
     v = _reader(name)({"steps": 1})
