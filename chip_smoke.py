@@ -16,7 +16,10 @@ Phases (any failure exits non-zero and prints no result):
      inputs (constant channels, subnormal and huge x, a frozen range that
      x overflows, bit maps on the rint ties 1.5 .. 8.5) and per-bit range
      rows (7, C) at P3 / P4 / P5 and (7, 1) at P4 (mse calibration's
-     ranges) — bitwise equality, one launch counted per call;
+     ranges), and RT-DETR-L's taps at bs 256 (80x80x512, 40x40x1024,
+     20x20x2048) — bitwise equality, one launch counted per call; then the
+     RT-DETR taps timed in bfloat16 with the soft mask (device ms beside
+     the bytes' bound at 3.35 TB/s);
  2b. the phi kernel (csrc/morph_tiles.cu, the 'lanes' tile engine) against
      its plain version on 28 gray maps — every tile 1-128 (random, and with
      constant, zero and exactly tied tiles), a random YOLOv8n's P3 / P4 / P5
@@ -31,10 +34,11 @@ Phases (any failure exits non-zero and prints no result):
      such tile counted; one launch a call.  Every later path zeroes both
      kernels' launch counts just before it runs and reads them just after
      (one phi launch per scale of every forward that runs the analyzer);
- 2c. the eval BatchNorm + SiLU kernel (csrc/bn_silu.cu) at every
-     ConvBnSiLU shape of a 640-px forward of YOLOv8n and YOLOv8m at bs 256
-     in bfloat16 (the serving cells) and of YOLOv8m at bs 64 in float32
-     (the KD teacher of the training cell): bitwise against F.batch_norm +
+ 2c. the eval BatchNorm + SiLU kernel (csrc/bn_silu.cu) at every SiLU
+     ConvBnSiLU shape of a 640-px forward of YOLOv8n, YOLOv8m and RT-DETR-L
+     (its 12) at bs 256 in bfloat16 (the serving cells) and of YOLOv8m at
+     bs 64 in float32 (the KD teacher of the training cell): bitwise
+     against F.batch_norm +
      F.silu with ATen's channels-last BatchNorm (cuDNN off) on each
      distinct shape, the largest gap measured (abs and in ulps; abs against
      the library's default, cuDNN's float32 BatchNorm), then its
@@ -64,7 +68,10 @@ Phases (any failure exits non-zero and prints no result):
      IoU 0.45, max_det 300) over three batches of 8 letterboxed images;
      kernel launch counts are reset just before and read just after, and
      one forward with quant_backend='torch' must give bitwise-equal raw
-     maps;
+     maps; then a seeded MCAQ RT-DETR-L served the same way from its own
+     checkpoint (conf 0.25, max_det 300, NMS-free) over one batch of 8: 3
+     spatial_quant, 3 phi_tiles and 12 bn_silu launches a call, and its
+     decoder output bitwise equal through the kernel and its plain version;
   4. the kernels alone, timed with CUDA events (median of 21; the
      program's own times are the benchmark's, `python3 -m perfbench.run`):
      the device time of the kernel and of its plain version (with the soft
@@ -224,8 +231,12 @@ _FRAC_QUANT_BASE = [0]  # the counter `frac_quant` at the last `zero_launches`
 # (variant, dtype, batch) of phase 2c: the serving cells' forwards and the
 # training cell's float32 teacher
 BN_SILU_FORWARDS = (("yolov8n", "bfloat16", 256), ("yolov8m", "bfloat16", 256),
-                    ("yolov8m", "float32", 64))
+                    ("yolov8m", "float32", 64), ("rtdetr-l", "bfloat16", 256))
 SCALES = (("P3", 80, 64, 10), ("P4", 40, 128, 10), ("P5", 20, 256, 5))
+# (scale, H = W, C, Ht = Wt) of RT-DETR-L's taps (yaml layers 3, 7, 9) at
+# 640 px, and the batch of its serving cell
+RTDETR_TAPS = (("P3", 80, 512, 10), ("P4", 40, 1024, 10), ("P5", 20, 2048, 5))
+RTDETR_BATCH = 256
 IMG = 640
 
 
@@ -279,32 +290,40 @@ def phi_launches(path: str, expected=None, bn=None, fq=0) -> int:
     return n
 
 
-def conv_bn_silu_modules(model) -> int:
-    """ConvBnSiLU modules in `model`: the bn_silu launches of one eval
-    forward on the card."""
+def takes_bn_silu(m) -> bool:
+    """A SiLU ConvBnSiLU: the modules whose eval BatchNorm + SiLU the
+    bn_silu kernel runs on the card (ReLU and activation-free ConvBns run
+    F.batch_norm)."""
     from mcaq_yolo_tpu_torch.models.layers import ConvBnSiLU
 
-    return sum(isinstance(m, ConvBnSiLU) for m in model.modules())
+    return isinstance(m, ConvBnSiLU) and m.act is True
+
+
+def conv_bn_silu_modules(model) -> int:
+    """SiLU ConvBnSiLU modules in `model`: the bn_silu launches of one eval
+    forward on the card."""
+    return sum(map(takes_bn_silu, model.modules()))
 
 
 def conv_bn_silu_shapes(variant: str, batch: int, img_size: int, num_classes: int = 80):
-    """(N, C, H, W) of every ConvBnSiLU output in a YOLOv8 `variant`'s
-    forward on (batch, img_size, img_size, 3) images, in forward order: the
-    maps the bn_silu kernel runs over on the card (traced on the meta
-    device, so nothing is computed)."""
+    """(N, C, H, W) of every SiLU ConvBnSiLU output in a `variant`'s
+    network forward (backbone, neck, head; YOLOv8 or RT-DETR) on a batch of
+    img_size images, in forward order: the maps the bn_silu kernel runs
+    over on the card (traced on the meta device, so nothing is
+    computed)."""
     import torch
 
-    from mcaq_yolo_tpu_torch.models.layers import ConvBnSiLU
-    from mcaq_yolo_tpu_torch.models.yolo import YOLOv8
+    from mcaq_yolo_tpu_torch.models.yolo import build_network
 
-    model = YOLOv8(variant, num_classes, device="cpu").to("meta")
+    with torch.device("meta"):
+        backbone, neck, head = build_network(variant, num_classes)
     shapes = []
     hooks = [m.register_forward_hook(lambda m, i, out: shapes.append(tuple(out.shape)))
-             for m in model.modules() if isinstance(m, ConvBnSiLU)]
+             for part in (backbone, neck, head) for m in part.modules() if takes_bn_silu(m)]
     try:
         with torch.no_grad():
-            model(torch.empty((batch, img_size, img_size, 3), dtype=torch.uint8,
-                              device="meta"))
+            x = torch.empty((batch, 3, img_size, img_size), device="meta")
+            head(neck(*backbone(x.contiguous(memory_format=torch.channels_last))))
     finally:
         for h in hooks:
             h.remove()
@@ -412,6 +431,8 @@ def quant_cases(device):
     cases += [(f"per-bit-rows-{name}", *case(32, h, c, t, seed=120 + 10 * i, rng=per_bit(c)))
               for i, (name, h, c, t) in enumerate(SCALES)]
     cases += [("per-bit-global-P4", *case(4, 40, 128, 10, seed=150, rng=per_bit(1)))]
+    cases += [(f"rtdetr-l-{name}", *case(RTDETR_BATCH, h, c, t, seed=160 + 10 * i))
+              for i, (name, h, c, t) in enumerate(RTDETR_TAPS)]
     return cases
 
 
@@ -454,6 +475,44 @@ def phase_kernel_vs_plain(device) -> float:
         del x32, bits, mask_in, x, a, b
     emit({"phase": "kernel_vs_plain", "cases": n_cases, "all_bitwise": True})
     return worst
+
+
+def rtdetr_tap_timings(device) -> list:
+    """spatial_quant at RT-DETR-L's three taps (bs 256, bfloat16, the soft
+    mask on; seeded normal maps and bit maps over 2-8 bits): the kernel's
+    device time (one launch a map larger than the 50 MB L2 cache, over
+    COPIES distinct copies in turn otherwise), the plain version's, and
+    the bytes' bound at 3.35 TB/s.  One row a tap."""
+    import torch
+
+    from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
+    from mcaq_yolo_tpu_torch.utils.cuda_timing import (COPIES, L2_BYTES, cuda_ms,
+                                                       quant_bound_ms, quant_bytes)
+
+    rows = []
+    for i, (name, h, c, t) in enumerate(RTDETR_TAPS):
+        g = torch.Generator(device=device).manual_seed(200 + i)
+        x = torch.randn((RTDETR_BATCH, h, h, c), generator=g, device=device).to(torch.bfloat16)
+        bits = torch.rand((RTDETR_BATCH, t, t), generator=g, device=device) * 7.0 + 1.5
+        mask = torch.rand((RTDETR_BATCH, h, h), generator=g, device=device)
+        lo, hi = (v.float().contiguous() for v in torch.aminmax(x.reshape(-1, c), dim=0))
+        copies = COPIES if x.numel() * x.element_size() < L2_BYTES else 1
+        xs = [x] + [x.clone() for _ in range(copies - 1)]
+        row = {"phase": "kernel_timing", "kernel": "spatial_quant",
+               "cell": "rtdetr-l-serve-bs256", "scale": name, "shape": list(x.shape),
+               "dtype": "torch.bfloat16", "mask": True, "bytes": quant_bytes(x, bits, mask),
+               "ms": cuda_ms(lambda k: sq.spatial_quantize(xs[k], bits, lo, hi, mask),
+                             reps=7, inner=copies, warmup=1, device_only=True),
+               "plain_ms": cuda_ms(lambda k: sq.spatial_quantize_torch(xs[k], bits, lo, hi,
+                                                                       mask),
+                                   reps=3, inner=copies, warmup=1, device_only=True),
+               "bound_ms": quant_bound_ms(x, bits, mask), "bound_by": "bytes"}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        emit(row)
+        del x, xs, bits, mask
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -938,6 +997,69 @@ def phase_deployed_program(device, dtype, workdir: Path):
 
     backend_parity(pred, images[:8], device, "backend_parity")
     return pred, launches
+
+
+def phase_rtdetr_deployed(device, dtype, workdir: Path) -> int:
+    """A seeded MCAQ RT-DETR-L (nc 80, the serving cell's MCAQ settings)
+    written as a checkpoint + meta and served by `Predictor` at 640 px in
+    `dtype` (conf 0.25, max_det 300, NMS-free) over one batch of 8
+    letterboxed images: 3 spatial_quant, 3 phi_tiles and 12 bn_silu
+    launches in the call, finite detections; then its decoder output
+    bitwise equal through the kernel and through its plain version.
+    Returns the call's spatial_quant launches."""
+    import numpy as np
+    import torch
+
+    from mcaq_yolo_tpu_torch.inference import Predictor
+    from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
+    from mcaq_yolo_tpu_torch.models.weights_io import to_jax_variables
+    from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
+    from mcaq_yolo_tpu_torch.utils.checkpoint import save_checkpoint
+
+    model = MCAQYOLO(variant="rtdetr-l", num_classes=80, bit_mapping="mlp",
+                     monotone_param="softplus", morph_downsample=2, dtype=dtype,
+                     device=device, seed=0)
+    path = workdir / "mcaq_rtdetr_l.ckpt"
+    save_checkpoint(path, to_jax_variables(model), {
+        "epoch": 0, "variant": "rtdetr-l", "num_classes": 80, "img_size": IMG,
+        "deploy_temperature": 1.0,
+        "config": {"quantization": {"min_bits": 2, "max_bits": 8, "target_bits": 4.0,
+                                    "grid_size": 8, "bit_mapping": "mlp",
+                                    "monotone_param": "softplus",
+                                    "normalize_complexity": False},
+                   "morphology": {"downsample": 2, "tile_engine": "lanes"}}})
+    del model
+    pred = Predictor(str(path), conf_threshold=0.25, max_det=300, dtype=dtype, device=device)
+    check(pred.model.family == "rtdetr" and not pred.model.head.nms_pool,
+          "the RT-DETR checkpoint was not served as RT-DETR")
+    images = serving_images(seed=3, count=1)
+
+    zero_launches()
+    t0 = time.perf_counter()
+    results = pred.predict_batch(images, batch_size=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sq.spatial_quantize.launches
+    modules = conv_bn_silu_modules(pred.model)
+    check(modules == 12, f"RT-DETR-L has {modules} SiLU ConvBns (expected 12)")
+    phi = phi_launches("deployed_rtdetr", 3, bn=modules)
+    check(launches == 3, f"spatial_quant launched {launches} times in one RT-DETR call "
+                         "(expected 3)")
+    check(len(results) == len(images), "predict_batch dropped images")
+    for r in results:
+        check(2.0 <= r["avg_bits"] <= 8.0, f"avg_bits {r['avg_bits']} outside [2, 8]")
+        for det in r["detections"]:
+            check(np.isfinite(det["bbox"]).all() and np.isfinite(det["confidence"]),
+                  "non-finite detection")
+    emit({"phase": "deployed_rtdetr", "variant": "rtdetr-l", "images": len(images),
+          "batches": 1, "img_size": IMG, "dtype": str(dtype), "wall_s": round(wall, 3),
+          "launches": {"spatial_quant": launches, "phi_tiles": phi,
+                       "bn_silu": BN_SILU_LAUNCHES["deployed_rtdetr"]},
+          "detections": sum(len(r["detections"]) for r in results)})
+    backend_parity(pred, images, device, "rtdetr_backend_parity")
+    del pred
+    torch.cuda.empty_cache()
+    return launches
 
 
 def backend_parity(pred, images, device, phase: str) -> int:
@@ -3057,6 +3179,7 @@ def main() -> int:
     gpu = phase_environment()
     lap("1_environment")
     worst = phase_kernel_vs_plain(device)
+    rtdetr_tap_timings(device)
     lap("2_kernel_vs_plain")
     phi_worst = phase_phi_vs_plain(device)
     lap("2b_phi_vs_plain")
@@ -3069,10 +3192,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         pred, launches = phase_deployed_program(device, dtype, Path(tmp))
         lap("3_deployed_program")
+        path_launches = {"deployed_rtdetr": phase_rtdetr_deployed(device, dtype, Path(tmp))}
+        lap("3_deployed_rtdetr")
         rows, phi_rows = phase_timings(pred, device, dtype)
         del pred
         lap("4_timings")
-        path_launches = phase_training(device, Path(tmp))
+        path_launches.update(phase_training(device, Path(tmp)))
         phase_step_cuda_vs_cpu(device)
         lap("5_training")
         path_launches.update(phase_train_from_disk(device, Path(tmp), gpu))

@@ -25,7 +25,7 @@ import torch.nn as nn
 
 from .core import morphology_lanes  # noqa: F401  (registers mcaq::phi_tiles)
 from .models.mcaq_yolo import MCAQYOLO
-from .models.yolo import decode_and_nms
+from .models.yolo import decode_and_nms, refuse_rtdetr
 from .ops import bn_silu, spatial_quant  # noqa: F401  (register mcaq::bn_silu, ::spatial_quantize)
 
 ARTIFACT = "mcaq_yolo.pt2"
@@ -38,7 +38,8 @@ def make_inference_fn(model: MCAQYOLO, with_nms: bool = True, conf_threshold: fl
     plus the fused `decode_and_nms` (the program `Predictor` and
     `make_eval_step` run).  images (B, H, W, 3) ->
     (boxes, scores, classes, valid, avg_bits), or without NMS
-    (raw maps..., avg_bits)."""
+    (raw maps..., avg_bits).  RT-DETR raises ValueError."""
+    refuse_rtdetr(model.variant, "export")
 
     def fn(images: torch.Tensor):
         raw, aux = model(images, temperature=1.0, quantize=True, training=False)

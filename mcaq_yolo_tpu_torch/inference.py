@@ -37,7 +37,6 @@ import torch
 from .data.dataset import IMG_EXTS, letterbox, read_image, unletterbox_boxes
 from .device import DeviceLike, resolve_device
 from .models.mcaq_yolo import MCAQYOLO
-from .models.yolo import decode_and_nms
 from .parallel.mesh import (
     all_gather_cat,
     data_group,
@@ -66,17 +65,20 @@ def deployed_program(model: MCAQYOLO, images: torch.Tensor, num_classes: int,
                      max_det: int = 1000, pre_topk: Optional[int] = None,
                      temperature: float = 1.0):
     """The deployed program: the quantized forward at `temperature`, then
-    decode + NMS, on (B, S, S, 3) uint8 -> (boxes, scores, classes, valid,
+    the head's post-process (`model.head.postprocess`: decode + NMS for
+    YOLO, the NMS-free `select_queries` for RT-DETR, which takes no IoU and
+    no pool), on (B, S, S, 3) uint8 -> (boxes, scores, classes, valid,
     avg_bits, the P3 complexity map, the P3 bit map, the above-gate
-    candidate count per image).  `pre_topk` None: `auto_pre_topk`.  One
-    call is one root span, 'deployed_program' (`utils/profiling.py`)."""
+    candidate count per image).  `num_classes` is the head's own.
+    `pre_topk` None: `auto_pre_topk`.  One call is one root span,
+    'deployed_program' (`utils/profiling.py`)."""
+    del num_classes
     if pre_topk is None:
         pre_topk = auto_pre_topk(max_det, conf_threshold)
     with span("deployed_program"):
         raw, aux = model(images, temperature=temperature, quantize=True)
-        *det, gated_count = decode_and_nms(
-            raw, num_classes, conf_threshold=conf_threshold, iou_threshold=iou_threshold,
-            max_det=max_det, pre_topk=pre_topk, with_pool_stats=True)
+        *det, gated_count = model.head.postprocess(raw, images.shape[1:3], conf_threshold,
+                                                   iou_threshold, max_det, pre_topk)
         return tuple(det) + (aux["avg_bits"], aux["complexity_map"][0], aux["bit_map"][0],
                              gated_count)
 
@@ -195,7 +197,10 @@ class Predictor:
                                 self.deploy_temperature)
 
     def _check_pool_headroom(self, gated_count: np.ndarray) -> None:
-        """Warn (every time) when the above-gate candidates fill the pool."""
+        """Warn (every time) when the above-gate candidates fill the NMS
+        pool (a head without one, RT-DETR's, never warns)."""
+        if not self.model.head.nms_pool:
+            return
         worst = int(np.max(gated_count))
         if worst >= self.pre_topk:
             self.pool_saturations += 1
@@ -314,7 +319,7 @@ def main(argv=None):
     parser.add_argument("--img-size", type=int, default=640)
     parser.add_argument("--num-classes", type=int, default=80)
     parser.add_argument("--variant", default="yolov8n",
-                        help="yolov8n-x or yolo11n-x, for a checkpoint without meta "
+                        help="yolov8n-x, yolo11n-x or rtdetr-l, for a checkpoint without meta "
                              "(default: the checkpoint's meta['variant'])")
     parser.add_argument("--output", default=None, help="JSON dump path")
     parser.add_argument("--visualize", action="store_true")

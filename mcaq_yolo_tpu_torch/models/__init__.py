@@ -1,5 +1,5 @@
-"""YOLOv8 and YOLO11 model families, MCAQ assembly and detection loss
-(exports resolved at first use)."""
+"""YOLOv8, YOLO11 and RT-DETR model families, MCAQ assembly and detection
+loss (exports resolved at first use)."""
 
 from .._lazy import lazy_exports
 
@@ -14,6 +14,15 @@ __getattr__, __dir__ = lazy_exports(__name__, {
     "PSABlock": ".layers",
     "C2PSA": ".layers",
     "SeparableConvBnSiLU": ".layers",
+    "HGStem": ".layers",
+    "HGBlock": ".layers",
+    "LightConv": ".layers",
+    "RepConv": ".layers",
+    "RepC3": ".layers",
+    "HGNetv2Backbone": ".rtdetr",
+    "HybridEncoder": ".rtdetr",
+    "RTDETRDecoder": ".rtdetr",
+    "select_queries": ".rtdetr",
     "YOLOv8Backbone": ".yolo",
     "YOLOv8Neck": ".yolo",
     "YOLO11Backbone": ".yolo",

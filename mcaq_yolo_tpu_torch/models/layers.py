@@ -1,7 +1,9 @@
 """
-YOLOv8 building blocks (port of `mcaq_yolo_tpu/models/layers.py:25-143`)
-and YOLO11's (Ultralytics `ultralytics/nn/modules/block.py`: C3k, C3k2,
-Attention, PSABlock, C2PSA; the Detect head's depthwise class branch).
+YOLOv8 building blocks (port of `mcaq_yolo_tpu/models/layers.py:25-143`),
+YOLO11's (Ultralytics `ultralytics/nn/modules/block.py`: C3k, C3k2,
+Attention, PSABlock, C2PSA; the Detect head's depthwise class branch) and
+RT-DETR's convolutional ones (`block.py`: HGStem, HGBlock, RepC3; `conv.py`:
+LightConv, RepConv).
 
 Tensors are NCHW in torch.channels_last memory, so the channel axis is the
 contiguous one, as in the reference's NHWC.  Submodule names follow the
@@ -21,6 +23,9 @@ with the attribute `tokens` (`utils/profiling.py`).
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -35,8 +40,8 @@ BN_MOMENTUM = 0.03  # torch convention; flax momentum 0.97
 
 
 class ConvBnSiLU(nn.Module):
-    """Conv2d (symmetric k//2 padding, no bias, `groups`) + BatchNorm(eps
-    1e-3) + SiLU (`act`; without it ConvBn).
+    """Conv2d (symmetric `padding`, default k//2, no bias, `groups`) +
+    BatchNorm(eps 1e-3) + SiLU (`act` True; False: ConvBn; 'relu': ReLU).
 
     The convolution runs in its weight's dtype (bfloat16 on the deployed
     path) or in autocast's (bfloat16 training with float32 weights);
@@ -44,12 +49,15 @@ class ConvBnSiLU(nn.Module):
     where the kernel takes the convolution's output (`bn_silu.takes`: on
     the card, nothing to differentiate), BatchNorm and SiLU are one pass of
     it over that output, in place; otherwise `F.batch_norm` then
-    `F.silu`."""
+    `F.silu`.  A ReLU ConvBn runs `F.batch_norm` then `F.relu`."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int = 1, stride: int = 1,
-                 act: bool = True, groups: int = 1):
+                 act=True, groups: int = 1, padding: Optional[int] = None):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(c_in, c_out, kernel, stride, kernel // 2, bias=False,
+        if act not in (True, False, "relu"):
+            raise ValueError(f"act must be True (SiLU), False or 'relu', got {act!r}")
+        self.Conv_0 = nn.Conv2d(c_in, c_out, kernel, stride,
+                                kernel // 2 if padding is None else padding, bias=False,
                                 groups=groups)
         self.BatchNorm_0 = BatchNorm2d(c_out, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
@@ -61,9 +69,11 @@ class ConvBnSiLU(nn.Module):
 
     def forward(self, x, training: bool = False):
         x = self.Conv_0(x)
-        if self.act and not training and bn_silu.takes(x, self.BatchNorm_0):
+        if self.act is True and not training and bn_silu.takes(x, self.BatchNorm_0):
             return bn_silu.bn_silu_(x, self.BatchNorm_0)
         x = self.BatchNorm_0(x, training)
+        if self.act == "relu":
+            return F.relu(x)
         return F.silu(x) if self.act else x
 
 
@@ -253,6 +263,103 @@ class SPPF(nn.Module):
         p2 = F.max_pool2d(p1, k, 1, k // 2)
         p3 = F.max_pool2d(p2, k, 1, k // 2)
         return self.ConvBnSiLU_1(torch.cat([y, p1, p2, p3], dim=1), training)
+
+
+def dwconv(c_in: int, c_out: int, kernel: int, stride: int = 1, act=True) -> ConvBnSiLU:
+    """Ultralytics' DWConv: a ConvBnSiLU of gcd(c_in, c_out) groups."""
+    return ConvBnSiLU(c_in, c_out, kernel, stride, act, groups=math.gcd(c_in, c_out))
+
+
+class HGStem(nn.Module):
+    """HGNetv2's stem (stride 4), every ConvBn with ReLU: stem1 (3x3 s2);
+    padded right and bottom by 1, stem2a (2x2, no padding), padded again,
+    stem2b (2x2) beside a 2x2 stride-1 max pool of the padded stem1;
+    concatenated, stem3 (3x3 s2) and stem4 (1x1)."""
+
+    def __init__(self, c_in: int, c_mid: int, c_out: int):
+        super().__init__()
+        self.stem1 = ConvBnSiLU(c_in, c_mid, 3, 2, "relu")
+        self.stem2a = ConvBnSiLU(c_mid, c_mid // 2, 2, 1, "relu", padding=0)
+        self.stem2b = ConvBnSiLU(c_mid // 2, c_mid, 2, 1, "relu", padding=0)
+        self.stem3 = ConvBnSiLU(2 * c_mid, c_mid, 3, 2, "relu")
+        self.stem4 = ConvBnSiLU(c_mid, c_out, 1, 1, "relu")
+
+    def forward(self, x, training: bool = False):
+        t = training
+        x = F.pad(self.stem1(x, t), [0, 1, 0, 1])
+        x2 = self.stem2b(F.pad(self.stem2a(x, t), [0, 1, 0, 1]), t)
+        x1 = F.max_pool2d(x, 2, 1, 0, ceil_mode=True)
+        return self.stem4(self.stem3(torch.cat([x1, x2], dim=1), t), t)
+
+
+class LightConv(nn.Module):
+    """A 1x1 ConvBn, then a depthwise k x k ConvBn with ReLU."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int):
+        super().__init__()
+        self.conv1 = ConvBnSiLU(c_in, c_out, 1, 1, False)
+        self.conv2 = dwconv(c_out, c_out, kernel, 1, "relu")
+
+    def forward(self, x, training: bool = False):
+        return self.conv2(self.conv1(x, training), training)
+
+
+class HGBlock(nn.Module):
+    """HGNetv2's block: y0 = x, y_i = m_i(y_{i-1}) for n layers (a k x k
+    ConvBn with ReLU, or `light` a LightConv) to `c_mid` channels; out =
+    ec(sc(cat(y_0..y_n))), sc a 1x1 to c_out / 2 and ec a 1x1 to c_out,
+    both with ReLU; plus x with `shortcut` when c_in == c_out."""
+
+    def __init__(self, c_in: int, c_mid: int, c_out: int, kernel: int = 3, n: int = 6,
+                 light: bool = False, shortcut: bool = False):
+        super().__init__()
+        self.n = n
+        for i in range(n):
+            c = c_in if i == 0 else c_mid
+            self.add_module(f"m_{i}", LightConv(c, c_mid, kernel) if light
+                            else ConvBnSiLU(c, c_mid, kernel, 1, "relu"))
+        self.sc = ConvBnSiLU(c_in + n * c_mid, c_out // 2, 1, 1, "relu")
+        self.ec = ConvBnSiLU(c_out // 2, c_out, 1, 1, "relu")
+        self.add = shortcut and c_in == c_out
+
+    def forward(self, x, training: bool = False):
+        ys = [x]
+        for i in range(self.n):
+            ys.append(getattr(self, f"m_{i}")(ys[-1], training))
+        y = self.ec(self.sc(torch.cat(ys, dim=1), training), training)
+        return y + x if self.add else y
+
+
+class RepConv(nn.Module):
+    """SiLU(ConvBn 3x3 (x) + ConvBn 1x1 (x)): RT-DETR's RepConv without its
+    identity BatchNorm, in its training form (two branches, not fused)."""
+
+    def __init__(self, c_in: int, c_out: int):
+        super().__init__()
+        self.conv1 = ConvBnSiLU(c_in, c_out, 3, 1, False)
+        self.conv2 = ConvBnSiLU(c_in, c_out, 1, 1, False)
+
+    def forward(self, x, training: bool = False):
+        return F.silu(self.conv1(x, training) + self.conv2(x, training))
+
+
+class RepC3(nn.Module):
+    """m(cv1(x)) + cv2(x): cv1 and cv2 1x1 ConvBnSiLU to c_out, m n RepConvs
+    (expansion 1, so Ultralytics' cv3 is the identity)."""
+
+    def __init__(self, c_in: int, c_out: int, n: int = 3):
+        super().__init__()
+        self.n = n
+        self.cv1 = ConvBnSiLU(c_in, c_out, 1)
+        self.cv2 = ConvBnSiLU(c_in, c_out, 1)
+        for i in range(n):
+            self.add_module(f"m_{i}", RepConv(c_out, c_out))
+
+    def forward(self, x, training: bool = False):
+        y = self.cv1(x, training)
+        for i in range(self.n):
+            y = getattr(self, f"m_{i}")(y, training)
+        return y + self.cv2(x, training)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

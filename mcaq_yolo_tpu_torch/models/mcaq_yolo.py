@@ -1,6 +1,6 @@
 """
 MCAQ-YOLO assembly (port of `mcaq_yolo_tpu/models/mcaq_yolo.py:36-171`):
-a YOLOv8 or YOLO11 (`models/yolo.py` families) with tile-wise
+a YOLOv8, YOLO11 or RT-DETR (`models/yolo.py` families) with tile-wise
 mixed-precision quantization of the backbone's C3/C4/C5 outputs before the
 neck.  One complexity analyzer and one bit mapper are shared across scales;
 each scale has its own quantizer (own channel count, own soft mask).
@@ -50,12 +50,15 @@ from .yolo import (
 
 class MCAQYOLO(nn.Module):
     """forward(x (B, H, W, 3) uint8 or float, temperature, quantize) ->
-    (raw_maps [3 x (B, H_s, W_s, 4*REG_MAX + nc) float32], aux dict).
+    (raw, aux dict).  raw: the Detect head's maps [3 x (B, H_s, W_s,
+    4*REG_MAX + nc) float32] (YOLO), or RT-DETR's decoder output [boxes
+    (B, 300, 4) cx, cy, w, h in [0, 1], logits (B, 300, nc)] float32.
 
     aux: 'complexity_map' and 'bit_map' (per-scale (B, Ht, Wt) lists),
     'avg_bits' (mean over scales of each scale's tile mean),
     'quantized_features' (per-scale NHWC), 'feature_layers' (the family's
-    backbone layers tapped: [4, 6, 9] YOLOv8, [4, 6, 10] YOLO11).
+    backbone layers tapped: [4, 6, 9] YOLOv8, [4, 6, 10] YOLO11, [3, 7, 9]
+    RT-DETR).
 
     `dtype` is the network's compute dtype (bfloat16 on the deployed path;
     the convolution weights are cast once).  For bfloat16 training keep
@@ -86,7 +89,8 @@ class MCAQYOLO(nn.Module):
         if morph_tile_engine not in TILE_ENGINES:
             raise ValueError(f"morph_tile_engine must be one of {TILE_ENGINES}, "
                              f"got {morph_tile_engine!r}")
-        self.feature_layers = FEATURE_LAYERS[family(variant)]
+        self.family = family(variant)
+        self.feature_layers = FEATURE_LAYERS[self.family]
         device = resolve_device(device)
         self.variant, self.num_classes = variant, num_classes
         self.min_bits, self.max_bits, self.target_bits = min_bits, max_bits, target_bits

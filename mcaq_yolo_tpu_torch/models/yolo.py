@@ -1,15 +1,18 @@
 """
-Detection model families YOLOv8 and YOLO11 (scales n/s/m/l/x) and the
-deployed decode + NMS (port of `mcaq_yolo_tpu/models/yolo.py:28-342`; YOLO11
-from Ultralytics `ultralytics/cfg/models/11/yolo11.yaml`, which the JAX
-package does not have).
+Detection model families YOLOv8 and YOLO11 (scales n/s/m/l/x), the family
+table that also names RT-DETR (`rtdetr-l`, built in `models/rtdetr.py`),
+and the deployed decode + NMS (port of `mcaq_yolo_tpu/models/yolo.py:28-342`;
+YOLO11 from Ultralytics `ultralytics/cfg/models/11/yolo11.yaml`, which the
+JAX package does not have).
 
 The backbone returns (C3, C4, C5) so MCAQ sits between backbone and neck;
 the Detect head emits raw per-scale maps.  Inside the network tensors are
 NCHW in channels_last memory; at the public boundary the reference's NHWC
 layout is kept: images (B, H, W, 3), raw maps (B, H, W, 4*REG_MAX + nc)
 float32.  A variant is a family's name and a scale letter ('yolov8n',
-'yolo11l'); any other name raises ValueError.
+'yolo11l', 'rtdetr-l'); any other name raises ValueError.  RT-DETR's head is
+its decoder, whose output is the last layer's boxes and logits
+(`models/rtdetr.py`), post-processed by `rtdetr.select_queries`, not NMS.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from .. import initializers as init
 from ..device import DeviceLike, resolve_device
 from ..ops.nms import nms_from_topk, stable_topk
 from ..utils.profiling import span
+from . import rtdetr
 from .layers import C2PSA, SPPF, C2f, C3k2, ConvBnSiLU, SeparableConvBnSiLU, upsample2x
 
 # family: scale: (depth_mult, width_mult, max_channels)
@@ -32,21 +36,41 @@ FAMILIES = {
                "l": (1.00, 1.00, 512), "x": (1.00, 1.25, 512)},
     "yolo11": {"n": (0.50, 0.25, 1024), "s": (0.50, 0.50, 1024), "m": (0.50, 1.00, 512),
                "l": (1.00, 1.00, 512), "x": (1.00, 1.50, 512)},
+    "rtdetr": {"l": (1.00, 1.00, 1024)},
 }
+# the text between a family's name and its scale letter
+_SEP = {"rtdetr": "-"}
 # variant: (depth_mult, width_mult, max_channels)
-VARIANTS = {f + s: v for f, scales in FAMILIES.items() for s, v in scales.items()}
+VARIANTS = {f + _SEP.get(f, "") + s: v for f, scales in FAMILIES.items()
+            for s, v in scales.items()}
 # the backbone layers (yaml indices) whose outputs are the neck's C3 / C4 / C5
-FEATURE_LAYERS = {"yolov8": [4, 6, 9], "yolo11": [4, 6, 10]}
+FEATURE_LAYERS = {"yolov8": [4, 6, 9], "yolo11": [4, 6, 10], "rtdetr": [3, 7, 9]}
 
 REG_MAX = 16
 STRIDES = (8, 16, 32)
 
 
 def family(variant: str) -> str:
-    """'yolov8' or 'yolo11' of a variant name; ValueError for any other."""
+    """'yolov8', 'yolo11' or 'rtdetr' of a variant name; ValueError for any
+    other."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}: one of {sorted(VARIANTS)}")
-    return variant[:-1]
+    return variant[:-1].rstrip("-")
+
+
+RTDETR_MISSING = {
+    "training": "Hungarian matching, the varifocal loss, denoising query groups and "
+                "per-layer auxiliary losses",
+    "export": "an exported NMS-free program (export traces decode + NMS)",
+}
+
+
+def refuse_rtdetr(variant: str, what: str) -> None:
+    """ValueError, naming what is missing, when `variant` is RT-DETR, whose
+    `what` ('training' or 'export') the port does not have."""
+    if family(variant) == "rtdetr":
+        raise ValueError(f"{variant!r}: RT-DETR {what} is not supported; it needs "
+                         f"{RTDETR_MISSING[what]}")
 
 
 def _ch(base: int, width: float, max_ch: int) -> int:
@@ -68,14 +92,18 @@ def _scaled(variant: str):
 def variant_channels(variant: str) -> Tuple[int, int, int]:
     """(C3, C4, C5) channel counts of a variant: the backbone's outputs."""
     _, c = _scaled(variant)
+    if family(variant) == "rtdetr":
+        return rtdetr.variant_channels()
     if family(variant) == "yolo11":
         return c(512), c(512), c(1024)
     return c(256), c(512), c(1024)
 
 
 def head_channels(variant: str) -> Tuple[int, int, int]:
-    """The neck's P3 / P4 / P5 channel counts, the Detect head's inputs."""
+    """The neck's P3 / P4 / P5 channel counts, the head's inputs."""
     _, c = _scaled(variant)
+    if family(variant) == "rtdetr":
+        return (rtdetr.HIDDEN,) * 3
     return c(256), c(512), c(1024)
 
 
@@ -200,7 +228,10 @@ class DetectHead(nn.Module):
     """Decoupled anchor-free head: per scale a box branch (2x Conv3x3 ->
     1x1, 4*REG_MAX) and a cls branch (2x Conv3x3 -> 1x1, nc; YOLO11: 2x
     depthwise 3x3 + 1x1, `SeparableConvBnSiLU`, -> 1x1, nc).  Returns raw
-    maps (B, H, W, 4*REG_MAX + nc) float32."""
+    maps (B, H, W, 4*REG_MAX + nc) float32.  Its post-process is decode +
+    NMS over a pool of `pre_topk` candidates (`postprocess`)."""
+
+    nms_pool = True
 
     def __init__(self, num_classes: int = 80, variant: str = "yolov8n"):
         super().__init__()
@@ -230,6 +261,16 @@ class DetectHead(nn.Module):
             init.lecun_normal_(cls.weight, g)
             cls.bias.fill_(float(-math.log((1.0 - cls_prior) / cls_prior)))
 
+    def postprocess(self, raw, img_hw, conf_threshold: float, iou_threshold: float,
+                    max_det: int, pre_topk: int):
+        """The deployed post-process of the raw maps: `decode_and_nms` ->
+        (boxes, scores, classes, valid, the above-gate candidate count).
+        `img_hw` is unused (boxes are in input pixels from the strides)."""
+        del img_hw
+        return decode_and_nms(raw, self.num_classes, conf_threshold=conf_threshold,
+                              iou_threshold=iou_threshold, max_det=max_det,
+                              pre_topk=pre_topk, with_pool_stats=True)
+
     def forward(self, feats: Sequence[torch.Tensor],
                 training: bool = False) -> List[torch.Tensor]:
         t = training
@@ -253,17 +294,20 @@ def init_weights(module: nn.Module, seed: int) -> None:
 
 
 def set_network_dtype(*modules: nn.Module, dtype: torch.dtype) -> None:
-    """Convolutions compute in `dtype` (weights cast once); BatchNorm keeps
-    float32 statistics and parameters, as the reference's flax modules keep
-    float32 params under a bf16 compute dtype."""
+    """Convolutions, linear layers and LayerNorms (RT-DETR's) compute in
+    `dtype` (weights cast once); BatchNorm keeps float32 statistics and
+    parameters, as the reference's flax modules keep float32 params under a
+    bf16 compute dtype."""
     for mod in modules:
         for m in mod.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.Linear, nn.LayerNorm)):
                 m.to(dtype=dtype)
 
 
 def build_network(variant: str, num_classes: int):
     """(backbone, neck, head) of a variant's family."""
+    if family(variant) == "rtdetr":
+        return rtdetr.build_network(num_classes)
     if family(variant) == "yolo11":
         return YOLO11Backbone(variant), YOLO11Neck(variant), DetectHead(num_classes, variant)
     return YOLOv8Backbone(variant), YOLOv8Neck(variant), DetectHead(num_classes, variant)

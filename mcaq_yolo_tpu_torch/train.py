@@ -97,7 +97,7 @@ from .models.weights_io import (
     params_tree,
     to_jax_variables,
 )
-from .models.yolo import YOLOv8, decode_and_nms, family
+from .models.yolo import YOLOv8, decode_and_nms, family, refuse_rtdetr
 from .utils.checkpoint import load_checkpoint, save_checkpoint, shard_like, write_msgpack
 from .utils.evaluation import (
     compute_map,
@@ -410,7 +410,8 @@ def make_val_loss_step(model: MCAQYOLO, loss_obj: MCAQYOLOLoss):
 def load_teacher(path, variant: str, num_classes: int, device: DeviceLike = None) -> YOLOv8:
     """A float32 plain detector of the variant's family (`YOLOv8`) from a
     flax variables msgpack ('params' and 'batch_stats'); raises ValueError
-    when a leaf is missing or extra."""
+    when a leaf is missing or extra, and for RT-DETR (not trained here)."""
+    refuse_rtdetr(variant, "training")
     teacher = YOLOv8(variant, num_classes, device=device)
     payload = load_checkpoint(path)
     template = to_jax_variables(teacher)
@@ -435,7 +436,9 @@ def export_teacher_from_ckpt(ckpt_path: str, out_path: str, variant: str,
     """Extract the detector (backbone / neck / head parameters and BatchNorm
     statistics) of an MCAQ checkpoint into a plain-detector variables
     msgpack, the teacher format `Trainer` loads.  The structure and shapes
-    are checked against the plain model (`YOLOv8`) of the given variant."""
+    are checked against the plain model (`YOLOv8`) of the given variant
+    (not RT-DETR, which is not trained here)."""
+    refuse_rtdetr(variant, "training")
     payload = load_checkpoint(ckpt_path)
     teacher = YOLOv8(variant, num_classes, device="cpu")
     load_jax_variables(teacher, {
@@ -520,6 +523,7 @@ class Trainer:
         self.img_size = int(dcfg.get("img_size", 640))
         self.variant = str(mcfg.get("name", "yolov8n"))
         family(self.variant)  # an unknown name raises here, mapped to no other family
+        refuse_rtdetr(self.variant, "training")
         self.morph_tile_engine = str(morph.get("tile_engine", "lanes"))
 
         # amp: bfloat16 convolutions on CUDA, float32 weights

@@ -1034,6 +1034,47 @@ def test_depthwise_conv_bn_silu_through_the_kernel_is_bitwise(cuda, monkeypatch,
 
 
 # ---------------------------------------------------------------------------
+# RT-DETR-L on the card (models/rtdetr.py: HGNetv2, AIFI, the deformable decoder)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_rtdetr_l_deployed_call_against_the_reference_and_its_launches(cuda):
+    """The bf16 deployed call of cell rtdetr-l-serve-bs256 at its shapes (640
+    px, every width; 32 images a call), through the cell's own driver: each
+    stage of its check within the cell's limits (taps, complexity and bit
+    maps, encoder logits, the selection exactly, the decoder's boxes and
+    logits, the detections exactly); a call launches bn_silu 12 times, the
+    quantize and phi kernels 3 times each, and samples 6 times."""
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+    from mcaq_yolo_tpu_torch.ops import bn_silu as bs
+    from mcaq_yolo_tpu_torch.utils import profiling
+    from perfbench import run
+    from perfbench.drivers import serve_batch_rtdetr as d
+
+    run.cache_env()
+    c = run.cell("rtdetr-l-serve-bs256")
+    c["traffic"].update(batch=32, pool_batches=2)
+    drv = d.Driver(c["config"], c["traffic"], 20261018, cuda, lambda o: None)
+    drv.setup()
+    drv.window(1.0)
+    x = drv.batches[0]
+    before = (bs.launches(), sq.spatial_quantize.launches, ml.phi_tiles.launches,
+              profiling.counters().get("deform_attn", 0))
+    drv.entry(x)
+    torch.cuda.synchronize()
+    after = (bs.launches(), sq.spatial_quantize.launches, ml.phi_tiles.launches,
+             profiling.counters().get("deform_attn", 0))
+    assert [a - b for a, b in zip(after, before)] == [12, 3, 3, 6]
+    drv.release()
+    numbers = drv.check()
+    over = {k: numbers[k] for k, lim in c["limits"].items()
+            if not k.startswith("_") and numbers[k] > lim}
+    assert not over, numbers
+    assert int(drv.picked["out"][3].sum()) > 0
+
+
+# ---------------------------------------------------------------------------
 # The training quantize's kernel pair (csrc/frac_quant.cu, ops/frac_quant.py)
 # ---------------------------------------------------------------------------
 
