@@ -62,6 +62,22 @@ Phases (any failure exits non-zero and prints no result):
      a backward a quantizer in each quantized training step on the card
      (12 in phase 5's two Stage-3 steps, 6 in its CUDA-versus-CPU step,
      6 a step from Stage 2 on in phase 6's training from disk);
+  2e. the float32 convolution kernel (csrc/conv_f32.py, Triton, 3xTF32) at
+     the KD teacher's 35 shapes (YOLOv8m's 77 ConvBnSiLU at bs 64, 640 px):
+     one launch counted a call, a channels-last output, and at each shape
+     its relative L2 gap to a float64 F.conv2d at most 2x cuDNN float32's
+     (TF32 off) and 100x below cuDNN TF32's; the device ms of the kernel,
+     the plain version and cuDNN float32 (`library_ms`) summed over the 77
+     beside the bound at 165 TFLOP/s (495 / 3); then a whole teacher
+     forward at bs 64 (77 launches, its device ms beside cuDNN's) against
+     a float64 teacher: C3/C4/C5 held to both, the raw maps (a seeded
+     head's biases, float32's rounding) to the 2x alone, and the raw maps
+     with the head's six output biases zeroed (the convolutions' own
+     output) to both; every later path reads the kernel's launches beside
+     the phi kernel's: 0 on a bf16 path, one a ConvBnSiLU of every forward
+     of a float32 network without autograd (the KD teacher's in each
+     training step, a float32 model's calibration, validation loss and
+     served forwards);
   3. the deployed program: a seeded random MCAQ-YOLOv8n (nc=80, MLP bit
      mapper, softplus) written as a flax msgpack checkpoint + meta, served
      by `Predictor(model_path)` at 640 px in bfloat16 (pool 256, conf 0.25,
@@ -197,7 +213,7 @@ Phases (any failure exits non-zero and prints no result):
      committed record is put back after.
 
 Output: JSON lines; before the last, the `{"kernels": [...]}` summary
-(spatial_quant, phi_tiles, bn_silu and frac_quant, each with
+(spatial_quant, phi_tiles, bn_silu, frac_quant and conv_f32, each with
 `launches_by_path`); the
 last line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or outside the repository, it exits 2.
@@ -205,6 +221,7 @@ Without a CUDA device, or outside the repository, it exits 2.
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -220,6 +237,9 @@ PHI_REPLACES = "mcaq_yolo_tpu/core/morphology_lanes.py:395"
 PHI_LAUNCHES = {}  # path -> phi_tiles launches in that path's run
 BN_SILU_SOURCE = "mcaq_yolo_tpu_torch/csrc/bn_silu.cu"
 FRAC_QUANT_SOURCE = "mcaq_yolo_tpu_torch/csrc/frac_quant.cu"
+CONV_F32_SOURCE = "mcaq_yolo_tpu_torch/csrc/conv_f32.py"
+CONV_F32_BATCH = 64  # the training cell's batch
+CONV_F32_FLOPS = 495e12 / 3  # three TF32 products a multiply-add (H100 SXM, dense)
 # (scale, H = W, C, Ht = Wt) of phase 2d: the training cell's maps, YOLOv8m
 # at 640 px, ds 1, and its batch
 FRAC_QUANT_MAPS = (("P3", 80, 192, 10), ("P4", 40, 384, 10), ("P5", 20, 576, 5))
@@ -228,6 +248,8 @@ BN_SILU_LAUNCHES = {}  # path -> bn_silu launches in that path's run
 _BN_SILU_BASE = [0]  # the counter `bn_silu` at the last `zero_launches`
 FRAC_QUANT_LAUNCHES = {}  # path -> frac_quant launches in that path's run
 _FRAC_QUANT_BASE = [0]  # the counter `frac_quant` at the last `zero_launches`
+CONV_F32_LAUNCHES = {}  # path -> conv_f32 launches in that path's run
+_CONV_F32_BASE = [0]  # the counter `conv_f32` at the last `zero_launches`
 # (variant, dtype, batch) of phase 2c: the serving cells' forwards and the
 # training cell's float32 teacher
 BN_SILU_FORWARDS = (("yolov8n", "bfloat16", 256), ("yolov8m", "bfloat16", 256),
@@ -254,19 +276,20 @@ def check(cond: bool, msg: str) -> None:
 
 
 def zero_launches() -> None:
-    """The kernels' launch counts set to 0 (bn_silu's and frac_quant's:
-    their counters noted), just before a path runs."""
+    """The kernels' launch counts set to 0 (bn_silu's, frac_quant's and
+    conv_f32's: their counters noted), just before a path runs."""
     from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
-    from mcaq_yolo_tpu_torch.ops import bn_silu, frac_quant
+    from mcaq_yolo_tpu_torch.ops import bn_silu, conv_f32, frac_quant
     from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
 
     sq.spatial_quantize.launches = 0
     ml.phi_tiles.launches = 0
     _BN_SILU_BASE[0] = bn_silu.launches()
     _FRAC_QUANT_BASE[0] = frac_quant.launches()
+    _CONV_F32_BASE[0] = conv_f32.launches()
 
 
-def phi_launches(path: str, expected=None, bn=None, fq=0) -> int:
+def phi_launches(path: str, expected=None, bn=None, fq=0, cf=0) -> int:
     """The phi kernel's launches since `zero_launches`, recorded as `path`'s;
     held to `expected` when given, else to at least one.  The eval
     BatchNorm + SiLU kernel's launches since then are recorded beside them,
@@ -274,9 +297,12 @@ def phi_launches(path: str, expected=None, bn=None, fq=0) -> int:
     the card, `conv_bn_silu_modules`); so are the training quantize's, held
     to `fq` (default 0: an eval, calibration or serving path runs none; a
     training step on the card runs 6, a forward and a backward for each of
-    the three quantizers, once quantization is on)."""
+    the three quantizers, once quantization is on); and the float32
+    convolution's, held to `cf` (default 0: a bf16 network runs none; a
+    float32 one with nothing to differentiate, the KD teacher or a float32
+    model in eval, one a ConvBnSiLU a forward)."""
     from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
-    from mcaq_yolo_tpu_torch.ops import bn_silu, frac_quant
+    from mcaq_yolo_tpu_torch.ops import bn_silu, conv_f32, frac_quant
 
     n = PHI_LAUNCHES[path] = ml.phi_tiles.launches
     check(n == expected if expected is not None else n > 0,
@@ -287,6 +313,8 @@ def phi_launches(path: str, expected=None, bn=None, fq=0) -> int:
           f"{path}: the bn_silu kernel launched {b} times (expected {bn})")
     f = FRAC_QUANT_LAUNCHES[path] = frac_quant.launches() - _FRAC_QUANT_BASE[0]
     check(f == fq, f"{path}: the frac_quant kernels launched {f} times (expected {fq})")
+    c = CONV_F32_LAUNCHES[path] = conv_f32.launches() - _CONV_F32_BASE[0]
+    check(c == cf, f"{path}: the conv_f32 kernel launched {c} times (expected {cf})")
     return n
 
 
@@ -305,20 +333,19 @@ def conv_bn_silu_modules(model) -> int:
     return sum(map(takes_bn_silu, model.modules()))
 
 
-def conv_bn_silu_shapes(variant: str, batch: int, img_size: int, num_classes: int = 80):
-    """(N, C, H, W) of every SiLU ConvBnSiLU output in a `variant`'s
-    network forward (backbone, neck, head; YOLOv8 or RT-DETR) on a batch of
-    img_size images, in forward order: the maps the bn_silu kernel runs
-    over on the card (traced on the meta device, so nothing is
-    computed)."""
+def _traced_conv_bn_silu(variant: str, batch: int, img_size: int, num_classes: int,
+                         record) -> None:
+    """A `variant`'s network forward (backbone, neck, head; YOLOv8 or
+    RT-DETR) on a batch of img_size images on the meta device (so nothing
+    is computed), calling record(module, input, output) at every SiLU
+    ConvBnSiLU in forward order."""
     import torch
 
     from mcaq_yolo_tpu_torch.models.yolo import build_network
 
     with torch.device("meta"):
         backbone, neck, head = build_network(variant, num_classes)
-    shapes = []
-    hooks = [m.register_forward_hook(lambda m, i, out: shapes.append(tuple(out.shape)))
+    hooks = [m.register_forward_hook(lambda m, i, out: record(m, i[0], out))
              for part in (backbone, neck, head) for m in part.modules() if takes_bn_silu(m)]
     try:
         with torch.no_grad():
@@ -327,7 +354,28 @@ def conv_bn_silu_shapes(variant: str, batch: int, img_size: int, num_classes: in
     finally:
         for h in hooks:
             h.remove()
+
+
+def conv_bn_silu_shapes(variant: str, batch: int, img_size: int, num_classes: int = 80):
+    """(N, C, H, W) of every SiLU ConvBnSiLU output in a `variant`'s
+    network forward on a batch of img_size images, in forward order: the
+    maps the bn_silu kernel runs over on the card."""
+    shapes = []
+    _traced_conv_bn_silu(variant, batch, img_size, num_classes,
+                         lambda m, x, out: shapes.append(tuple(out.shape)))
     return shapes
+
+
+def conv_bn_silu_convs(variant: str, batch: int, img_size: int, num_classes: int = 80):
+    """(N, Cin, H, W, Cout, kernel, stride, padding) of every SiLU
+    ConvBnSiLU's convolution in a `variant`'s network forward, in forward
+    order: the convolutions the conv_f32 kernel runs for a float32 network
+    on the card (YOLOv8m's 77 in 35 shapes, the KD teacher's)."""
+    convs = []
+    _traced_conv_bn_silu(variant, batch, img_size, num_classes, lambda m, x, out: convs.append(
+        tuple(x.shape) + (m.Conv_0.out_channels, m.Conv_0.kernel_size[0],
+                          m.Conv_0.stride[0], m.Conv_0.padding[0])))
+    return convs
 
 
 # ---------------------------------------------------------------------------
@@ -860,6 +908,167 @@ def frac_quant_kernel_entry(rows) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2e
+# ---------------------------------------------------------------------------
+
+
+def phase_conv_f32(device, batch: int = CONV_F32_BATCH, img: int = IMG) -> dict:
+    """The float32 convolution kernel at the KD teacher's 35 shapes (YOLOv8m's
+    77 ConvBnSiLU at bs 64 and 640 px): each shape's gap to float64 beside
+    cuDNN float32's (TF32 off) and TF32's, then the device ms of the kernel,
+    the plain version and cuDNN float32 summed over the 77, beside the
+    bound at 165 TFLOP/s; then a whole teacher forward against a float64
+    teacher (module docstring, 2e).  One row."""
+    from collections import Counter
+
+    import torch
+    import torch.nn.functional as F
+
+    from mcaq_yolo_tpu_torch.models.yolo import YOLOv8
+    from mcaq_yolo_tpu_torch.ops import bn_silu as bs
+    from mcaq_yolo_tpu_torch.ops import conv_f32 as cf
+    from mcaq_yolo_tpu_torch.train import _teacher_outputs
+    from mcaq_yolo_tpu_torch.utils.cuda_timing import cuda_ms
+
+    def rel(a, ref):
+        return float((a.double() - ref).norm() / ref.norm())
+
+    def cudnn(x, w, s, p, tf32):
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                        allow_tf32=tf32):
+            return F.conv2d(x, w, None, s, p)
+
+    convs = Counter((c[1], c[4], c[5], c[6], c[7], c[2])
+                    for c in conv_bn_silu_convs("yolov8m", 1, img))
+    row = {"batch": batch, "modules": sum(convs.values()), "distinct_shapes": len(convs),
+           "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0, "shapes": []}
+    for k, ((cin, cout, ks, s, p, size), n) in enumerate(sorted(convs.items())):
+        g = torch.Generator(device=device).manual_seed(k)
+        x = torch.randn(batch, cin, size, size, generator=g, device=device)
+        x = x.contiguous(memory_format=torch.channels_last)
+        w = torch.randn(cout, cin, ks, ks, generator=g, device=device) / (cin * ks * ks) ** 0.5
+        w = w.contiguous(memory_format=torch.channels_last)
+        before = cf.launches()
+        y = cf.conv_f32(x, w, (s, s), (p, p))
+        check(cf.launches() == before + 1, f"conv_f32 {cin}->{cout} k{ks}: no launch counted")
+        check(y.is_contiguous(memory_format=torch.channels_last),
+              f"conv_f32 {cin}->{cout} k{ks}: the output is not channels-last")
+        ref = F.conv2d(x.double(), w.double(), None, s, p)
+        gaps = {"kernel": rel(y, ref), "library": rel(cudnn(x, w, s, p, False), ref),
+                "tf32": rel(cudnn(x, w, s, p, True), ref)}
+        del y, ref
+        check(gaps["kernel"] <= 2 * gaps["library"] and gaps["tf32"] >= 100 * gaps["kernel"],
+              f"conv_f32 {cin}->{cout} k{ks} s{s} at {size}: not float32-accurate {gaps}")
+        ms = cuda_ms(lambda i: cf.conv_f32(x, w, (s, s), (p, p)), reps=3, inner=2, warmup=1,
+                     device_only=True)
+        plain = cuda_ms(lambda i: cf.conv_f32_torch(x, w, (s, s), (p, p)), reps=3, inner=1,
+                        warmup=1, device_only=True)
+        library = cuda_ms(lambda i: cudnn(x, w, s, p, False), reps=3, inner=2, warmup=1,
+                          device_only=True)
+        out = (size + 2 * p - ks) // s + 1
+        flop = 2 * batch * out * out * cout * cin * ks * ks
+        row["ms"] += n * ms
+        row["plain_ms"] += n * plain
+        row["library_ms"] += n * library
+        row["flop"] += n * flop
+        row["shapes"].append({"shape": [cin, cout, ks, s, p, size], "count": n, "ms": ms,
+                              "plain_ms": plain, "library_ms": library,
+                              "tflops": flop / ms / 1e9, "gap": gaps})
+        del x, w
+    torch.cuda.empty_cache()
+    row["bound_ms"] = row["flop"] / CONV_F32_FLOPS * 1e3
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["worst_gap"] = {key: max(r["gap"][key] for r in row["shapes"])
+                        for key in ("kernel", "library", "tf32")}
+    row["worst_gap_ratio"] = max(r["gap"]["kernel"] / r["gap"]["library"]
+                                 for r in row["shapes"])
+
+    # a whole teacher forward (the train step's `_teacher_outputs`) against a
+    # float64 teacher: the raw maps and C3/C4/C5; then the raw maps again
+    # with the Detect head's six output biases zeroed, i.e. the convolutions'
+    # own output
+    teacher = YOLOv8("yolov8m", 80, device=device, seed=0)
+    g = torch.Generator(device=device).manual_seed(5)
+    images = torch.randint(0, 256, (batch, img, img, 3), generator=g, device=device,
+                           dtype=torch.uint8)
+    names = ("P3", "P4", "P5", "C3", "C4", "C5")
+
+    def outputs(model):
+        maps, feats = _teacher_outputs(model, images)
+        return [t.double() for t in list(maps) + list(feats)]
+
+    def gaps(timed: bool) -> dict:
+        """Each output's gap to a float64 teacher's: by the kernel, by
+        cuDNN float32 and by cuDNN TF32."""
+        takes, bn_takes, tf32 = cf.takes, bs.takes, torch.backends.cudnn.allow_tf32
+        try:
+            torch.backends.cudnn.allow_tf32 = False
+            before = cf.launches()
+            got = outputs(teacher)
+            if timed:
+                CONV_F32_LAUNCHES["teacher_yolov8m"] = cf.launches() - before
+                check(CONV_F32_LAUNCHES["teacher_yolov8m"] == row["modules"],
+                      f"a teacher forward launched conv_f32 {cf.launches() - before} times")
+                row["teacher_ms"] = cuda_ms(lambda i: _teacher_outputs(teacher, images),
+                                            reps=3, warmup=1)
+            cf.takes = lambda x, conv: False
+            lib = outputs(teacher)
+            if timed:
+                row["teacher_library_ms"] = cuda_ms(
+                    lambda i: _teacher_outputs(teacher, images), reps=3, warmup=1)
+            torch.backends.cudnn.allow_tf32 = True
+            tf = outputs(teacher)
+            torch.backends.cudnn.allow_tf32 = False
+            bs.takes = lambda x, bn: False  # no float64 in the bn_silu kernel
+            t64 = copy.deepcopy(teacher).double()
+            t64.dtype = torch.float64
+            ref = outputs(t64)
+            del t64
+        finally:
+            cf.takes, bs.takes, torch.backends.cudnn.allow_tf32 = takes, bn_takes, tf32
+        out = {key: dict(zip(names, (rel(a, r) for a, r in zip(outs, ref))))
+               for key, outs in (("kernel", got), ("library", lib), ("tf32", tf))}
+        del got, lib, tf, ref
+        torch.cuda.empty_cache()
+        return out
+
+    row["teacher_gap"] = gap = gaps(timed=True)
+    with torch.no_grad():
+        for m in teacher.modules():
+            if isinstance(m, torch.nn.Conv2d) and m.bias is not None:
+                m.bias.zero_()
+    row["teacher_gap_unbiased"] = unbiased = {
+        key: {n: v[n] for n in names[:3]} for key, v in gaps(timed=False).items()}
+    del teacher, images
+    torch.cuda.empty_cache()
+    # the raw maps of a seeded teacher are mostly the Detect head's biases:
+    # their gap is float32's rounding of the output, held to the 2x alone;
+    # without the biases they are held as C3/C4/C5 are
+    check(all(gap["kernel"][n] <= 2 * gap["library"][n] for n in names)
+          and all(gap["tf32"][n] >= 100 * gap["kernel"][n] for n in names[3:])
+          and all(unbiased["kernel"][n] <= 2 * unbiased["library"][n]
+                  and unbiased["tf32"][n] >= 100 * unbiased["kernel"][n] for n in names[:3]),
+          f"conv_f32: a teacher forward is not float32-accurate {gap} {unbiased}")
+    emit({"phase": "conv_f32", **{k: v for k, v in row.items() if k != "shapes"}})
+    for r in row["shapes"]:
+        emit({"phase": "conv_f32_shape", **r})
+    return row
+
+
+def conv_f32_kernel_entry(row) -> dict:
+    """The float32 convolution kernel's entry of the `kernels` line: its
+    device time over the KD teacher's 77 convolutions at bs 64 (phase 2e),
+    that work's bound at 165 TFLOP/s, the plain version's and cuDNN
+    float32's time, its worst gap to float64 over the 35 shapes, and the
+    launches each path counted (phase 5's training run's first)."""
+    return {"name": "conv_f32", "route": "triton", "source": CONV_F32_SOURCE,
+            "replaces": None, "launches": CONV_F32_LAUNCHES.get("training"),
+            "max_rel_l2_to_float64": row["worst_gap"]["kernel"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": "ops",
+            "library_ms": row["library_ms"], "launches_by_path": dict(CONV_F32_LAUNCHES)}
+
+
+# ---------------------------------------------------------------------------
 # Phase 3
 # ---------------------------------------------------------------------------
 
@@ -971,9 +1180,12 @@ def phase_deployed_program(device, dtype, workdir: Path):
     wall = time.perf_counter() - t0
     launches = sq.spatial_quantize.launches
     forwards = 3
-    # one phi launch per scale per forward, one bn_silu per ConvBnSiLU
+    # one phi launch per scale per forward, one bn_silu per ConvBnSiLU (and
+    # one conv_f32 per ConvBnSiLU of a float32 network)
     phi = phi_launches("deployed", 3 * forwards,
-                       bn=conv_bn_silu_modules(pred.model) * forwards)
+                       bn=conv_bn_silu_modules(pred.model) * forwards,
+                       cf=conv_bn_silu_modules(pred.model) * forwards
+                       if dtype == torch.float32 else 0)
     bn = BN_SILU_LAUNCHES["deployed"]
 
     check(len(results) == len(images), "predict_batch dropped images")
@@ -1364,9 +1576,12 @@ def phase_training(device, workdir: Path, img: int = IMG, batch: int = TRAIN_BAT
     train_s = time.perf_counter() - t0
     train_launches = sq.spatial_quantize.launches
     # 3 one-batch epochs, 3 scales; the float32 KD teacher's eval forward a
-    # step; the 2 Stage-3 steps' training quantize, forward and backward
-    train_phi = phi_launches("training", 3 * 3, bn=3 * conv_bn_silu_modules(trainer.teacher),
-                             fq=2 * 3 * 2)
+    # step (its BatchNorm + SiLU and its convolutions; the bf16 student's
+    # run neither); the 2 Stage-3 steps' training quantize, forward and
+    # backward
+    teacher_modules = conv_bn_silu_modules(trainer.teacher)
+    train_phi = phi_launches("training", 3 * 3, bn=3 * teacher_modules, fq=2 * 3 * 2,
+                             cf=3 * teacher_modules)
     grads = _grad_groups(trainer.model)
     grad_norms = {k: float(v.norm()) for k, v in grads.items()}
     num_batches = [int(q.num_batches) for q in trainer.model.quantizers]
@@ -1394,7 +1609,9 @@ def phase_training(device, workdir: Path, img: int = IMG, batch: int = TRAIN_BAT
     if device.type == "cuda":
         torch.cuda.synchronize()
     calib_launches = sq.spatial_quantize.launches
-    calib_phi = phi_launches("calibration", 3 * 2, bn=2 * conv_bn_silu_modules(trainer.model))
+    # the trained model's float32 weights, no autocast: its convolutions too
+    calib_phi = phi_launches("calibration", 3 * 2, bn=2 * conv_bn_silu_modules(trainer.model),
+                             cf=2 * conv_bn_silu_modules(trainer.model))
     stats = [(int(q.num_batches), bool(q.frozen)) for q in trainer.model.quantizers]
     emit({"phase": "calibration", "batches": 2, "quantizer_state": stats,
           "launches": {"spatial_quant": calib_launches, "phi_tiles": calib_phi}})
@@ -1439,7 +1656,7 @@ def phase_step_cuda_vs_cpu(device, img: int = 128, batch: int = 2):
     from mcaq_yolo_tpu_torch.models.losses import MCAQYOLOLoss
     from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
     from mcaq_yolo_tpu_torch.models.yolo import YOLOv8
-    from mcaq_yolo_tpu_torch.ops import frac_quant
+    from mcaq_yolo_tpu_torch.ops import conv_f32, frac_quant
     from mcaq_yolo_tpu_torch.train import Optimizer, make_train_step
 
     check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
@@ -1452,15 +1669,20 @@ def phase_step_cuda_vs_cpu(device, img: int = 128, batch: int = 2):
         teacher = YOLOv8("yolov8n", 80, device=dev, seed=1)
         step = make_train_step(model, MCAQYOLOLoss(80, 4.0), teacher)
         opt = Optimizer(model, lambda s: 0.0)  # lr 0: the weights stay
-        f0 = frac_quant.launches()
+        f0, c0 = frac_quant.launches(), conv_f32.launches()
         m = step(opt, {k: torch.from_numpy(v).to(dev) for k, v in data.items()}, 1.0, 4.0,
                  0.05, 0.1, 0.5, 1e-4, quantize=True, use_kd=True)
-        launched = frac_quant.launches() - f0
-        # the kernels on the card only: a forward and a backward a quantizer
+        launched, convs = frac_quant.launches() - f0, conv_f32.launches() - c0
+        # the kernels on the card only: a forward and a backward a quantizer;
+        # the float32 teacher's convolutions (the student's need gradients)
         check(launched == (6 if dev.type == "cuda" else 0),
               f"step on {dev.type}: the frac_quant kernels launched {launched} times")
+        want = conv_bn_silu_modules(teacher) if dev.type == "cuda" else 0
+        check(convs == want,
+              f"step on {dev.type}: the conv_f32 kernel launched {convs} times (expected {want})")
         if dev.type == "cuda":
             FRAC_QUANT_LAUNCHES["step_cuda_vs_cpu"] = launched
+            CONV_F32_LAUNCHES["step_cuda_vs_cpu"] = convs
         # the step clipped the gradients to norm 1; scale them back
         runs[dev.type] = ({k: float(m[k]) for k in LOSS_KEYS},
                           _grad_groups(model, max(float(m["grad_norm"]), 1.0)))
@@ -1631,20 +1853,26 @@ def phase_train_from_disk(device, workdir: Path, gpu: str, img: int = IMG,
 
     # kernel launches per path, against the eval forwards that ran them
     counts = {"evaluate": [0, 0, 0], "val_loss": [0, 0, 0]}
-    forwards = [0]
+    forwards = [0, 0]  # quantized eval forwards, all eval forwards
+    # the float32 student's eval forwards, quantized or not (MCAQYOLO runs
+    # an eval forward without autograd, so its convolutions take conv_f32)
+    eval_forwards = {"evaluate": 0, "val_loss": 0}
 
     def count_forward(module, args, kwargs):
+        forwards[1] += not kwargs.get("training", False)
         if kwargs.get("quantize", True) and not kwargs.get("training", False):
             forwards[0] += 1
 
     def counted(name, fn):
         def run(epoch):
             l0, f0, p0 = sq.spatial_quantize.launches, forwards[0], ml.phi_tiles.launches
+            a0 = forwards[1]
             r = fn(epoch)
             torch.cuda.synchronize()
             counts[name][0] += sq.spatial_quantize.launches - l0
             counts[name][1] += forwards[0] - f0
             counts[name][2] += ml.phi_tiles.launches - p0
+            eval_forwards[name] += forwards[1] - a0
             return r
         return run
 
@@ -1658,9 +1886,14 @@ def phase_train_from_disk(device, workdir: Path, gpu: str, img: int = IMG,
     train_s = time.perf_counter() - t0
     launches = sq.spatial_quantize.launches
     # the training quantize: a forward and a backward of the 3 quantizers
-    # in every step from Stage 2 on
+    # in every step from Stage 2 on; the float32 convolutions of the KD
+    # teacher's forward in every step and of the float32 student's eval
+    # forwards (evaluate, validation loss)
     phi_launches("train_from_disk", fq=6 * sum(h["batches"] for h in trainer.history
-                                                if h["stage"] >= 2))
+                                                if h["stage"] >= 2),
+                 cf=conv_bn_silu_modules(trainer.teacher) * sum(h["batches"]
+                                                                 for h in trainer.history)
+                 + conv_bn_silu_modules(trainer.model) * sum(eval_forwards.values()))
     for name, (_, _, n_phi) in counts.items():
         PHI_LAUNCHES[name] = n_phi
         check(n_phi > 0, f"{name}: the phi kernel never launched")
@@ -1681,7 +1914,8 @@ def phase_train_from_disk(device, workdir: Path, gpu: str, img: int = IMG,
           "launches": {"spatial_quant": launches, **{k: v[0] for k, v in counts.items()},
                        "phi_tiles": PHI_LAUNCHES["train_from_disk"],
                        **{f"phi_{k}": v[2] for k, v in counts.items()}},
-          "quantized_eval_forwards": {k: v[1] for k, v in counts.items()}})
+          "quantized_eval_forwards": {k: v[1] for k, v in counts.items()},
+          "eval_forwards": eval_forwards})
     check([h["stage"] for h in hist] == [1, 1, 2, 3, 3], "stages are not 1, 1, 2, 3, 3")
     check(hist[0]["subset_size"] is not None and hist[0]["subset_size"] < DISK_TRAIN,
           f"the Stage-1 tau_t subset did not filter: {hist[0]['subset_size']}")
@@ -2217,8 +2451,9 @@ def phase_evidence_scripts(device, workdir: Path, gpu: str):
         own = aux["bit_map"]
         ext, n_own = launched(lambda: m3_permutation.apply_external_bit_maps(model, x, own))
         check(n_own == 3, f"the external-map forward launched {n_own} times (expected 3)")
-        # the maps replace the analyzer; the network runs once
-        phi_launches("external_bit_maps", 0, bn=conv_bn_silu_modules(model))
+        # the maps replace the analyzer; the float32 network runs once
+        phi_launches("external_bit_maps", 0, bn=conv_bn_silu_modules(model),
+                     cf=conv_bn_silu_modules(model))
         check(all(torch.equal(a, b) for a, b in zip(raw, ext)),
               "apply_external_bit_maps with the model's own maps differs from its forward")
 
@@ -2269,6 +2504,7 @@ def phase_evidence_scripts(device, workdir: Path, gpu: str):
                                    "batched_nms_ms": cuda_ms(separate, reps=11),
                                    "decode_and_nms_ms": cuda_ms(fused, reps=11)}
             check(same, f"batched_nms differs from decode_and_nms at conf {conf}")
+    modules = conv_bn_silu_modules(model)  # the scripts build the same YOLOv8n
     del pred, model
     emit({"phase": "external_bit_maps", "gpu": gpu, "batch": int(x.shape[0]),
           "own_maps": {"launches": n_own, "bitwise_equal_forward": True}, **arms,
@@ -2295,10 +2531,11 @@ def phase_evidence_scripts(device, workdir: Path, gpu: str):
             (res, n_launch), s = _synced_s(lambda: launched(lambda: runs[name](bs)))
         finally:
             undo()
-        n_phi = phi_launches(f"script_{name}")
         # downsample_fidelity's loader drops a ragged tail, the others keep it
         n_batches = n_val // bs if name == "downsample_fidelity" else -(-n_val // bs)
         expected = n_batches * per_batch
+        # the scripts' float32 networks: one conv_f32 a ConvBnSiLU a forward
+        n_phi = phi_launches(f"script_{name}", cf=modules * expected)
         emit({"phase": f"script_{name}", "gpu": gpu, "batch": bs, "wall_s": s,
               "launches": n_launch, "phi_launches": n_phi, "quantized_forwards": counter[0],
               "result": res})
@@ -3159,7 +3396,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    sources = (KERNEL_SOURCE, PHI_SOURCE, BN_SILU_SOURCE, FRAC_QUANT_SOURCE)
+    sources = (KERNEL_SOURCE, PHI_SOURCE, BN_SILU_SOURCE, FRAC_QUANT_SOURCE, CONV_F32_SOURCE)
     if not all((ROOT / src).is_file() for src in sources):
         print(f"chip_smoke: one of {', '.join(sources)} not found; run from the repository",
               file=sys.stderr)
@@ -3187,6 +3424,8 @@ def main() -> int:
     lap("2c_bn_silu")
     fq_rows = phase_frac_quant(device)
     lap("2d_frac_quant")
+    cf_row = phase_conv_f32(device)
+    lap("2e_conv_f32")
     scratch = ROOT / "build"  # gitignored; the run writes nothing outside the checkout
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
@@ -3229,7 +3468,7 @@ def main() -> int:
         "library_ms": None,
         "launches_by_path": dict(deployed=launches, **path_launches),
     }, phi_kernel_entry(phi_rows, phi_worst), bn_silu_kernel_entry(bn_rows),
-        frac_quant_kernel_entry(fq_rows)]})
+        frac_quant_kernel_entry(fq_rows), conv_f32_kernel_entry(cf_row)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -14,7 +14,8 @@ Every forward takes `training` (default False), as the reference's modules
 do: BatchNorm then normalizes with the batch's statistics and updates its
 running ones by flax's rule (`batch_norm.py`).  In eval on the card,
 ConvBnSiLU's BatchNorm and SiLU are one in-place pass of the kernel
-`csrc/bn_silu.cu` (`ops/bn_silu.py`).
+`csrc/bn_silu.cu` (`ops/bn_silu.py`), and a float32 ConvBnSiLU's
+convolution is the kernel `csrc/conv_f32.py` (`ops/conv_f32.py`).
 
 YOLO11's attention records the span 'psa.attention' and the counter
 `psa_attention` (one an attention evaluated), C2PSA the span 'model.psa'
@@ -32,7 +33,7 @@ import torch.nn.functional as F
 
 from .. import initializers as init
 from ..batch_norm import BatchNorm2d
-from ..ops import bn_silu
+from ..ops import bn_silu, conv_f32
 from ..utils.profiling import count, span
 
 BN_EPS = 1e-3
@@ -44,8 +45,11 @@ class ConvBnSiLU(nn.Module):
     BatchNorm(eps 1e-3) + SiLU (`act` True; False: ConvBn; 'relu': ReLU).
 
     The convolution runs in its weight's dtype (bfloat16 on the deployed
-    path) or in autocast's (bfloat16 training with float32 weights);
-    BatchNorm keeps float32 statistics and affine parameters.  In eval,
+    path) or in autocast's (bfloat16 training with float32 weights); a
+    float32 one on the card with nothing to differentiate (the KD teacher,
+    a float32 model in eval) runs the kernel `csrc/conv_f32.py`
+    (`conv_f32.takes`), float32-accurate on the tensor cores.  BatchNorm
+    keeps float32 statistics and affine parameters.  In eval,
     where the kernel takes the convolution's output (`bn_silu.takes`: on
     the card, nothing to differentiate), BatchNorm and SiLU are one pass of
     it over that output, in place; otherwise `F.batch_norm` then
@@ -68,7 +72,8 @@ class ConvBnSiLU(nn.Module):
         self.BatchNorm_0.reset_parameters()
 
     def forward(self, x, training: bool = False):
-        x = self.Conv_0(x)
+        conv = self.Conv_0
+        x = conv_f32.conv2d(x, conv) if conv_f32.takes(x, conv) else conv(x)
         if self.act is True and not training and bn_silu.takes(x, self.BatchNorm_0):
             return bn_silu.bn_silu_(x, self.BatchNorm_0)
         x = self.BatchNorm_0(x, training)

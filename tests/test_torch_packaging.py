@@ -1,8 +1,9 @@
 """An installed port can build its native libraries, and the port takes the
 JAX package's options.
 
-  * a wheel of the checkout ships `csrc/spatial_quant.cu` and
-    `csrc/dataio.cpp`, and the unpacked package's `ops/build.py` finds both
+  * a wheel of the checkout ships `csrc/spatial_quant.cu`,
+    `csrc/dataio.cpp` and the Triton kernel `csrc/conv_f32.py`, and the
+    unpacked package's `ops/build.py` finds the first two
     sources and builds into the per-user cache, not into site-packages;
   * `Predictor(data_parallel=..., morph_tile_engine=...)`,
     `MCAQYOLO(morph_tile_engine=...)`, a checkpoint meta's
@@ -57,7 +58,7 @@ def test_wheel_ships_the_sources_and_builds_into_the_user_cache(tmp_path):
     with zipfile.ZipFile(wheel) as z:
         names = z.namelist()
         z.extractall(site)
-    for f in ("spatial_quant.cu", "dataio.cpp"):
+    for f in ("spatial_quant.cu", "dataio.cpp", "conv_f32.py"):
         assert f"mcaq_yolo_tpu_torch/csrc/{f}" in names
 
     probe = ("from mcaq_yolo_tpu_torch.ops import build\n"

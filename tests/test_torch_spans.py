@@ -282,7 +282,8 @@ def test_serving_readers_on_a_cpu_summary(model, images, name, counter, tmp_path
 
 @pytest.mark.parametrize("name,counter", [("mcaq_stream_ms.train", False),
                                           ("host_syncs.train", True),
-                                          ("frac_quant_launches.train", True)])
+                                          ("frac_quant_launches.train", True),
+                                          ("conv_f32_launches.train", True)])
 def test_training_readers_on_a_cpu_summary(traced_step, name, counter):
     traced_step()
     v = _reader(name)({"steps": 1})
