@@ -35,8 +35,10 @@ Phases (any failure exits non-zero and prints no result):
      kernels' launch counts just before it runs and reads them just after
      (one phi launch per scale of every forward that runs the analyzer);
  2c. the eval BatchNorm + SiLU kernel (csrc/bn_silu.cu) at every SiLU
-     ConvBnSiLU shape of a 640-px forward of YOLOv8n, YOLOv8m and RT-DETR-L
-     (its 12) at bs 256 in bfloat16 (the serving cells) and of YOLOv8m at
+     ConvBnSiLU shape of a 640-px forward of YOLOv8n, YOLOv8m, RT-DETR-L
+     (its 12) and YOLO12-L (its 141, 16 of them 307 channels wide: the
+     kernel's element path) at bs 256 in bfloat16 (the serving cells) and
+     of YOLOv8m at
      bs 64 in float32 (the KD teacher of the training cell): bitwise
      against F.batch_norm +
      F.silu with ATen's channels-last BatchNorm (cuDNN off) on each
@@ -84,10 +86,13 @@ Phases (any failure exits non-zero and prints no result):
      IoU 0.45, max_det 300) over three batches of 8 letterboxed images;
      kernel launch counts are reset just before and read just after, and
      one forward with quant_backend='torch' must give bitwise-equal raw
-     maps; then a seeded MCAQ RT-DETR-L served the same way from its own
-     checkpoint (conf 0.25, max_det 300, NMS-free) over one batch of 8: 3
-     spatial_quant, 3 phi_tiles and 12 bn_silu launches a call, and its
-     decoder output bitwise equal through the kernel and its plain version;
+     maps; then a seeded MCAQ RT-DETR-L (conf 0.25, max_det 300, NMS-free)
+     and a seeded MCAQ YOLO12-L (conf 0.25, IoU 0.45, max_det 300), each
+     served the same way from its own checkpoint over one batch of 8: 3
+     spatial_quant and 3 phi_tiles launches a call, and 12 bn_silu
+     launches (RT-DETR-L) or 141 with 16 area attentions (YOLO12-L), all
+     counted from zero just before the call; then each one's raw maps
+     bitwise equal through the kernel and its plain version;
   4. the kernels alone, timed with CUDA events (median of 21; the
      program's own times are the benchmark's, `python3 -m perfbench.run`):
      the device time of the kernel and of its plain version (with the soft
@@ -253,7 +258,12 @@ _CONV_F32_BASE = [0]  # the counter `conv_f32` at the last `zero_launches`
 # (variant, dtype, batch) of phase 2c: the serving cells' forwards and the
 # training cell's float32 teacher
 BN_SILU_FORWARDS = (("yolov8n", "bfloat16", 256), ("yolov8m", "bfloat16", 256),
-                    ("yolov8m", "float32", 64), ("rtdetr-l", "bfloat16", 256))
+                    ("yolov8m", "float32", 64), ("rtdetr-l", "bfloat16", 256),
+                    ("yolo12l", "bfloat16", 256))
+# variant -> (path, SiLU ConvBns, area attentions) of one call of phase 3's
+# seeded checkpoints of the other families
+FAMILY_CALLS = {"rtdetr-l": ("deployed_rtdetr", 12, 0),
+                "yolo12l": ("deployed_yolo12", 141, 16)}
 SCALES = (("P3", 80, 64, 10), ("P4", 40, 128, 10), ("P5", 20, 256, 5))
 # (scale, H = W, C, Ht = Wt) of RT-DETR-L's taps (yaml layers 3, 7, 9) at
 # 640 px, and the batch of its serving cell
@@ -335,8 +345,8 @@ def conv_bn_silu_modules(model) -> int:
 
 def _traced_conv_bn_silu(variant: str, batch: int, img_size: int, num_classes: int,
                          record) -> None:
-    """A `variant`'s network forward (backbone, neck, head; YOLOv8 or
-    RT-DETR) on a batch of img_size images on the meta device (so nothing
+    """A `variant`'s network forward (backbone, neck, head; any family) on a
+    batch of img_size images on the meta device (so nothing
     is computed), calling record(module, input, output) at every SiLU
     ConvBnSiLU in forward order."""
     import torch
@@ -1211,13 +1221,14 @@ def phase_deployed_program(device, dtype, workdir: Path):
     return pred, launches
 
 
-def phase_rtdetr_deployed(device, dtype, workdir: Path) -> int:
-    """A seeded MCAQ RT-DETR-L (nc 80, the serving cell's MCAQ settings)
-    written as a checkpoint + meta and served by `Predictor` at 640 px in
-    `dtype` (conf 0.25, max_det 300, NMS-free) over one batch of 8
-    letterboxed images: 3 spatial_quant, 3 phi_tiles and 12 bn_silu
-    launches in the call, finite detections; then its decoder output
-    bitwise equal through the kernel and through its plain version.
+def phase_family_deployed(device, dtype, workdir: Path, variant: str) -> int:
+    """A seeded MCAQ `variant` of FAMILY_CALLS (nc 80, the serving cells' MCAQ
+    settings) written as a checkpoint + meta and served by `Predictor` at
+    640 px in `dtype` (conf 0.25, IoU 0.45, max_det 300; RT-DETR NMS-free)
+    over one batch of 8 letterboxed images: 3 spatial_quant and 3 phi_tiles
+    launches in the call, bn_silu once a SiLU ConvBn and the counter
+    `area_attention` as FAMILY_CALLS says, finite detections; then its raw
+    maps bitwise equal through the kernel and through its plain version.
     Returns the call's spatial_quant launches."""
     import numpy as np
     import torch
@@ -1225,15 +1236,19 @@ def phase_rtdetr_deployed(device, dtype, workdir: Path) -> int:
     from mcaq_yolo_tpu_torch.inference import Predictor
     from mcaq_yolo_tpu_torch.models.mcaq_yolo import MCAQYOLO
     from mcaq_yolo_tpu_torch.models.weights_io import to_jax_variables
+    from mcaq_yolo_tpu_torch.models.yolo import family
     from mcaq_yolo_tpu_torch.ops import spatial_quant as sq
+    from mcaq_yolo_tpu_torch.utils import profiling
     from mcaq_yolo_tpu_torch.utils.checkpoint import save_checkpoint
 
-    model = MCAQYOLO(variant="rtdetr-l", num_classes=80, bit_mapping="mlp",
+    path, want_bn, want_attn = FAMILY_CALLS[variant]
+    fam = family(variant)
+    model = MCAQYOLO(variant=variant, num_classes=80, bit_mapping="mlp",
                      monotone_param="softplus", morph_downsample=2, dtype=dtype,
                      device=device, seed=0)
-    path = workdir / "mcaq_rtdetr_l.ckpt"
-    save_checkpoint(path, to_jax_variables(model), {
-        "epoch": 0, "variant": "rtdetr-l", "num_classes": 80, "img_size": IMG,
+    ckpt = workdir / f"mcaq_{variant.replace('-', '_')}.ckpt"
+    save_checkpoint(ckpt, to_jax_variables(model), {
+        "epoch": 0, "variant": variant, "num_classes": 80, "img_size": IMG,
         "deploy_temperature": 1.0,
         "config": {"quantization": {"min_bits": 2, "max_bits": 8, "target_bits": 4.0,
                                     "grid_size": 8, "bit_mapping": "mlp",
@@ -1241,34 +1256,39 @@ def phase_rtdetr_deployed(device, dtype, workdir: Path) -> int:
                                     "normalize_complexity": False},
                    "morphology": {"downsample": 2, "tile_engine": "lanes"}}})
     del model
-    pred = Predictor(str(path), conf_threshold=0.25, max_det=300, dtype=dtype, device=device)
-    check(pred.model.family == "rtdetr" and not pred.model.head.nms_pool,
-          "the RT-DETR checkpoint was not served as RT-DETR")
+    pred = Predictor(str(ckpt), conf_threshold=0.25, max_det=300, dtype=dtype, device=device)
+    check(pred.model.family == fam and pred.model.head.nms_pool == (fam != "rtdetr"),
+          f"the {variant} checkpoint was not served as {fam}")
     images = serving_images(seed=3, count=1)
 
+    attn0 = profiling.counters().get("area_attention", 0)
     zero_launches()
     t0 = time.perf_counter()
     results = pred.predict_batch(images, batch_size=8)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = sq.spatial_quantize.launches
+    attn = profiling.counters().get("area_attention", 0) - attn0
     modules = conv_bn_silu_modules(pred.model)
-    check(modules == 12, f"RT-DETR-L has {modules} SiLU ConvBns (expected 12)")
-    phi = phi_launches("deployed_rtdetr", 3, bn=modules)
-    check(launches == 3, f"spatial_quant launched {launches} times in one RT-DETR call "
+    check(modules == want_bn, f"{variant} has {modules} SiLU ConvBns (expected {want_bn})")
+    phi = phi_launches(path, 3, bn=modules)
+    check(launches == 3, f"spatial_quant launched {launches} times in one {variant} call "
                          "(expected 3)")
+    check(attn == want_attn, f"{variant}: {attn} area attentions in one call "
+                             f"(expected {want_attn})")
     check(len(results) == len(images), "predict_batch dropped images")
     for r in results:
         check(2.0 <= r["avg_bits"] <= 8.0, f"avg_bits {r['avg_bits']} outside [2, 8]")
         for det in r["detections"]:
             check(np.isfinite(det["bbox"]).all() and np.isfinite(det["confidence"]),
                   "non-finite detection")
-    emit({"phase": "deployed_rtdetr", "variant": "rtdetr-l", "images": len(images),
+    emit({"phase": path, "variant": variant, "images": len(images),
           "batches": 1, "img_size": IMG, "dtype": str(dtype), "wall_s": round(wall, 3),
           "launches": {"spatial_quant": launches, "phi_tiles": phi,
-                       "bn_silu": BN_SILU_LAUNCHES["deployed_rtdetr"]},
+                       "bn_silu": BN_SILU_LAUNCHES[path]},
+          "area_attention": attn,
           "detections": sum(len(r["detections"]) for r in results)})
-    backend_parity(pred, images, device, "rtdetr_backend_parity")
+    backend_parity(pred, images, device, f"{fam}_backend_parity")
     del pred
     torch.cuda.empty_cache()
     return launches
@@ -3431,8 +3451,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         pred, launches = phase_deployed_program(device, dtype, Path(tmp))
         lap("3_deployed_program")
-        path_launches = {"deployed_rtdetr": phase_rtdetr_deployed(device, dtype, Path(tmp))}
-        lap("3_deployed_rtdetr")
+        path_launches = {}
+        for variant, (path, _, _) in FAMILY_CALLS.items():
+            path_launches[path] = phase_family_deployed(device, dtype, Path(tmp), variant)
+            lap(f"3_{path}")
         rows, phi_rows = phase_timings(pred, device, dtype)
         del pred
         lap("4_timings")

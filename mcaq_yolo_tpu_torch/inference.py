@@ -319,8 +319,8 @@ def main(argv=None):
     parser.add_argument("--img-size", type=int, default=640)
     parser.add_argument("--num-classes", type=int, default=80)
     parser.add_argument("--variant", default="yolov8n",
-                        help="yolov8n-x, yolo11n-x or rtdetr-l, for a checkpoint without meta "
-                             "(default: the checkpoint's meta['variant'])")
+                        help="yolov8n-x, yolo11n-x, yolo12n-x or rtdetr-l, for a checkpoint "
+                             "without meta (default: the checkpoint's meta['variant'])")
     parser.add_argument("--output", default=None, help="JSON dump path")
     parser.add_argument("--visualize", action="store_true")
     parser.add_argument("--output-dir", default="outputs/infer")

@@ -1,9 +1,9 @@
 """
 YOLOv8 building blocks (port of `mcaq_yolo_tpu/models/layers.py:25-143`),
 YOLO11's (Ultralytics `ultralytics/nn/modules/block.py`: C3k, C3k2,
-Attention, PSABlock, C2PSA; the Detect head's depthwise class branch) and
-RT-DETR's convolutional ones (`block.py`: HGStem, HGBlock, RepC3; `conv.py`:
-LightConv, RepConv).
+Attention, PSABlock, C2PSA; the Detect head's depthwise class branch),
+YOLO12's (`block.py`: AAttn, ABlock, A2C2f) and RT-DETR's convolutional
+ones (`block.py`: HGStem, HGBlock, RepC3; `conv.py`: LightConv, RepConv).
 
 Tensors are NCHW in torch.channels_last memory, so the channel axis is the
 contiguous one, as in the reference's NHWC.  Submodule names follow the
@@ -19,7 +19,10 @@ convolution is the kernel `csrc/conv_f32.py` (`ops/conv_f32.py`).
 
 YOLO11's attention records the span 'psa.attention' and the counter
 `psa_attention` (one an attention evaluated), C2PSA the span 'model.psa'
-with the attribute `tokens` (`utils/profiling.py`).
+with the attribute `tokens`; YOLO12's area attention the span
+'a2.attention' and the counter `area_attention`, an A2C2f with attention
+the span 'model.a2c2f' with the attributes `tokens` and `area`
+(`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -53,7 +56,12 @@ class ConvBnSiLU(nn.Module):
     where the kernel takes the convolution's output (`bn_silu.takes`: on
     the card, nothing to differentiate), BatchNorm and SiLU are one pass of
     it over that output, in place; otherwise `F.batch_norm` then
-    `F.silu`.  A ReLU ConvBn runs `F.batch_norm` then `F.relu`."""
+    `F.silu`.  A ReLU ConvBn runs `F.batch_norm` then `F.relu`.
+
+    `init_weights` draws the convolution lecun-normal, or from a normal of
+    std `init_std` where a block sets one (YOLO12's ABlock: 0.02)."""
+
+    init_std: Optional[float] = None
 
     def __init__(self, c_in: int, c_out: int, kernel: int = 1, stride: int = 1,
                  act=True, groups: int = 1, padding: Optional[int] = None):
@@ -68,7 +76,10 @@ class ConvBnSiLU(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, g: torch.Generator):
-        init.lecun_normal_(self.Conv_0.weight, g)
+        if self.init_std is None:
+            init.lecun_normal_(self.Conv_0.weight, g)
+        else:
+            self.Conv_0.weight.normal_(0.0, self.init_std, generator=g)
         self.BatchNorm_0.reset_parameters()
 
     def forward(self, x, training: bool = False):
@@ -235,6 +246,127 @@ class C2PSA(nn.Module):
             for i in range(self.n):
                 b = getattr(self, f"PSABlock_{i}")(b, training)
             return self.ConvBnSiLU_1(torch.cat([a, b], dim=1), training)
+
+
+class AreaSDPA(nn.Module):
+    """The area attention's core, parameter-free: q, k, v (B * area, heads,
+    tokens, head_dim) -> softmax(q k^T head_dim^-0.5) v of the same shape,
+    one `F.scaled_dot_product_attention` over every area and head (on the
+    card a fused backend, so no score tensor is materialised)."""
+
+    def forward(self, q, k, v):
+        return F.scaled_dot_product_attention(q, k, v)
+
+
+class AAttn(nn.Module):
+    """YOLO12's area attention over c channels in `heads` heads: `qkv` (1x1
+    ConvBn to 3c) holds per head [q, k, v] of head_dim = c / heads channels
+    each.  The H * W tokens, in row-major order, are cut into `area` equal
+    runs (at P4 with area 4: strips of whole rows) that attend only within
+    themselves, as extra batch entries of `AreaSDPA`.  out = proj(o +
+    pe(v)), `pe` a depthwise 7x7 ConvBn, `proj` a 1x1 ConvBn.  ValueError
+    when `area` does not divide H * W.  Span 'a2.attention'; counter
+    `area_attention`, one an attention."""
+
+    def __init__(self, c: int, heads: int, area: int = 1):
+        super().__init__()
+        self.heads, self.area = heads, area
+        self.head_dim = c // heads
+        self.qkv = ConvBnSiLU(c, 3 * c, 1, act=False)
+        self.proj = ConvBnSiLU(c, c, 1, act=False)
+        self.pe = ConvBnSiLU(c, c, 7, act=False, groups=c)
+        self.sdpa = AreaSDPA()
+
+    def forward(self, x, training: bool = False):
+        B, C, H, W = x.shape
+        N, a = H * W, self.area
+        if N % a:
+            raise ValueError(f"area {a} does not divide the {H} x {W} = {N} tokens")
+        with span("a2.attention"):
+            count("area_attention")
+            # (B * area, N / area, heads, 3 head_dim): a view of channels-last memory
+            qkv = self.qkv(x, training).permute(0, 2, 3, 1).reshape(
+                B * a, N // a, self.heads, 3 * self.head_dim)
+            q, k, v = qkv.transpose(1, 2).split(self.head_dim, dim=-1)
+            o = self.sdpa(q, k, v)
+
+            def to_map(t):  # (B * area, heads, N / area, d) -> NCHW in channels-last memory
+                return t.transpose(1, 2).reshape(B, H, W, C).permute(0, 3, 1, 2)
+
+            return self.proj(to_map(o) + self.pe(to_map(v), training), training)
+
+
+class ABlock(nn.Module):
+    """x + AAttn(x), then x + mlp(x): a 1x1 ConvBnSiLU to int(c * mlp_ratio)
+    and a 1x1 ConvBn back.  Its convolutions start from a normal of std
+    0.02, as Ultralytics' ABlock._init_weights draws them (lecun-normal
+    weights would grow the residual stream ~1.9x in std a block)."""
+
+    INIT_STD = 0.02
+
+    def __init__(self, c: int, heads: int, mlp_ratio: float = 1.2, area: int = 1):
+        super().__init__()
+        hidden = int(c * mlp_ratio)
+        self.AAttn_0 = AAttn(c, heads, area)
+        self.ConvBnSiLU_0 = ConvBnSiLU(c, hidden, 1)
+        self.ConvBnSiLU_1 = ConvBnSiLU(hidden, c, 1, act=False)
+        for m in self.modules():
+            if isinstance(m, ConvBnSiLU):
+                m.init_std = self.INIT_STD
+
+    def forward(self, x, training: bool = False):
+        x = x + self.AAttn_0(x, training)
+        return x + self.ConvBnSiLU_1(self.ConvBnSiLU_0(x, training), training)
+
+
+class A2C2f(nn.Module):
+    """YOLO12's R-ELAN block: y_0 = cv1(x) (1x1 to h = c_out / 2, a multiple
+    of 32; not split), y_i = m_i(y_{i-1}) for n stages, out = cv2(cat(y_0 ..
+    y_n)).  With `a2` a stage is two ABlocks (h / 32 heads of 32, `area`,
+    `mlp_ratio`), else a C3k of two 3x3 Bottlenecks with their residuals.
+    With `a2` and `residual`, out = x + gamma * out, gamma (c_out,) a
+    learned layer scale that starts at 0.01, computed in float32 and
+    rounded once to x's dtype (gamma stays float32 in a bfloat16 network).
+    With `a2`, one span 'model.a2c2f' (attributes `tokens`: H * W, and
+    `area`)."""
+
+    def __init__(self, c_in: int, c_out: int, n: int = 1, a2: bool = True, area: int = 1,
+                 residual: bool = False, mlp_ratio: float = 2.0):
+        super().__init__()
+        hidden = c_out // 2
+        if hidden % 32:
+            raise ValueError(f"A2C2f's hidden width {hidden} is not a multiple of 32")
+        self.a2, self.area = a2, area
+        self.ConvBnSiLU_0 = ConvBnSiLU(c_in, hidden, 1)
+        self.stages = []
+        for i in range(n):
+            if a2:
+                self.stages.append([f"ABlock_{2 * i}", f"ABlock_{2 * i + 1}"])
+                for name in self.stages[-1]:
+                    self.add_module(name, ABlock(hidden, hidden // 32, mlp_ratio, area))
+            else:
+                self.stages.append([f"C3k_{i}"])
+                self.add_module(self.stages[-1][0], C3k(hidden, hidden, 2))
+        self.ConvBnSiLU_1 = ConvBnSiLU((1 + n) * hidden, c_out, 1)
+        self.gamma = nn.Parameter(torch.full((c_out,), 0.01)) if a2 and residual else None
+
+    def forward(self, x, training: bool = False):
+        if not self.a2:
+            return self._forward(x, training)
+        with span("model.a2c2f", tokens=x.shape[2] * x.shape[3], area=self.area):
+            return self._forward(x, training)
+
+    def _forward(self, x, training):
+        ys = [self.ConvBnSiLU_0(x, training)]
+        for names in self.stages:
+            y = ys[-1]
+            for name in names:
+                y = self._modules[name](y, training)
+            ys.append(y)
+        y = self.ConvBnSiLU_1(torch.cat(ys, dim=1), training)
+        if self.gamma is None:
+            return y
+        return (x.float() + self.gamma.view(1, -1, 1, 1) * y.float()).to(x.dtype)
 
 
 class SeparableConvBnSiLU(nn.Module):

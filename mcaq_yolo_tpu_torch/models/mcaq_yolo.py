@@ -1,6 +1,6 @@
 """
 MCAQ-YOLO assembly (port of `mcaq_yolo_tpu/models/mcaq_yolo.py:36-171`):
-a YOLOv8, YOLO11 or RT-DETR (`models/yolo.py` families) with tile-wise
+a YOLOv8, YOLO11, YOLO12 or RT-DETR (`models/yolo.py` families) with tile-wise
 mixed-precision quantization of the backbone's C3/C4/C5 outputs before the
 neck.  One complexity analyzer and one bit mapper are shared across scales;
 each scale has its own quantizer (own channel count, own soft mask).
@@ -57,8 +57,8 @@ class MCAQYOLO(nn.Module):
     aux: 'complexity_map' and 'bit_map' (per-scale (B, Ht, Wt) lists),
     'avg_bits' (mean over scales of each scale's tile mean),
     'quantized_features' (per-scale NHWC), 'feature_layers' (the family's
-    backbone layers tapped: [4, 6, 9] YOLOv8, [4, 6, 10] YOLO11, [3, 7, 9]
-    RT-DETR).
+    backbone layers tapped: [4, 6, 9] YOLOv8, [4, 6, 10] YOLO11, [4, 6, 8]
+    YOLO12, [3, 7, 9] RT-DETR).
 
     `dtype` is the network's compute dtype (bfloat16 on the deployed path;
     the convolution weights are cast once).  For bfloat16 training keep

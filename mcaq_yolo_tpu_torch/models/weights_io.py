@@ -13,7 +13,7 @@ kernel lands on `model.backbone.C2f_0.ConvBnSiLU_0.Conv_0.weight`:
   Dense kernel (in, out) -> Linear weight (out, in); bias
   BatchNorm / LayerNorm scale, bias -> weight, bias;
   batch_stats mean, var -> running_mean, running_var
-  MonotoneDense theta stays (in, out)
+  MonotoneDense theta stays (in, out); A2C2f's layer scale gamma stays (C,)
   quant_stats / buffers -> the module buffer of the same name
 
 `to_jax_variables(model)` is the inverse (float32 arrays, int32
@@ -47,6 +47,7 @@ import torch.nn as nn
 from ..core.bit_allocation import MonotoneDense
 from ..core.quantization import LearnedRoundingQuantization
 from ..utils.checkpoint import copy_full_, full_tensor
+from .layers import A2C2f
 
 COLLECTIONS = ("params", "batch_stats", "quant_stats", "buffers")
 _NORMS = (nn.BatchNorm1d, nn.BatchNorm2d, nn.LayerNorm)
@@ -81,6 +82,8 @@ def _target(module: nn.Module, collection: str, leaf: str):
                 return getattr(module, leaf), None
         elif isinstance(module, LearnedRoundingQuantization) and leaf == "alpha":
             return module.alpha, None
+        elif isinstance(module, A2C2f) and leaf == "gamma" and module.gamma is not None:
+            return module.gamma, None
     elif collection == "batch_stats" and isinstance(module, _NORMS):
         if leaf in ("mean", "var"):
             return getattr(module, "running_" + leaf), None
@@ -143,6 +146,8 @@ def param_leaves(model: nn.Module):
             yield path + ("bias",), m.bias, None
         elif isinstance(m, LearnedRoundingQuantization):
             yield path + ("alpha",), m.alpha, None
+        elif isinstance(m, A2C2f) and m.gamma is not None:
+            yield path + ("gamma",), m.gamma, None
 
 
 def _put(tree: Dict, path, tensor: torch.Tensor, axes=None) -> None:

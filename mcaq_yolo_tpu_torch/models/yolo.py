@@ -1,18 +1,20 @@
 """
-Detection model families YOLOv8 and YOLO11 (scales n/s/m/l/x), the family
-table that also names RT-DETR (`rtdetr-l`, built in `models/rtdetr.py`),
-and the deployed decode + NMS (port of `mcaq_yolo_tpu/models/yolo.py:28-342`;
-YOLO11 from Ultralytics `ultralytics/cfg/models/11/yolo11.yaml`, which the
-JAX package does not have).
+Detection model families YOLOv8, YOLO11 and YOLO12 (scales n/s/m/l/x), the
+family table that also names RT-DETR (`rtdetr-l`, built in
+`models/rtdetr.py`), and the deployed decode + NMS (port of
+`mcaq_yolo_tpu/models/yolo.py:28-342`; YOLO11 and YOLO12 from Ultralytics
+`ultralytics/cfg/models/11/yolo11.yaml` and `12/yolo12.yaml`, which the JAX
+package does not have).
 
 The backbone returns (C3, C4, C5) so MCAQ sits between backbone and neck;
 the Detect head emits raw per-scale maps.  Inside the network tensors are
 NCHW in channels_last memory; at the public boundary the reference's NHWC
 layout is kept: images (B, H, W, 3), raw maps (B, H, W, 4*REG_MAX + nc)
 float32.  A variant is a family's name and a scale letter ('yolov8n',
-'yolo11l', 'rtdetr-l'); any other name raises ValueError.  RT-DETR's head is
-its decoder, whose output is the last layer's boxes and logits
-(`models/rtdetr.py`), post-processed by `rtdetr.select_queries`, not NMS.
+'yolo11l', 'yolo12l', 'rtdetr-l'); any other name raises ValueError.
+RT-DETR's head is its decoder, whose output is the last layer's boxes and
+logits (`models/rtdetr.py`), post-processed by `rtdetr.select_queries`, not
+NMS.
 """
 
 from __future__ import annotations
@@ -28,13 +30,24 @@ from ..device import DeviceLike, resolve_device
 from ..ops.nms import nms_from_topk, stable_topk
 from ..utils.profiling import span
 from . import rtdetr
-from .layers import C2PSA, SPPF, C2f, C3k2, ConvBnSiLU, SeparableConvBnSiLU, upsample2x
+from .layers import (
+    C2PSA,
+    SPPF,
+    A2C2f,
+    C2f,
+    C3k2,
+    ConvBnSiLU,
+    SeparableConvBnSiLU,
+    upsample2x,
+)
 
 # family: scale: (depth_mult, width_mult, max_channels)
 FAMILIES = {
     "yolov8": {"n": (0.33, 0.25, 1024), "s": (0.33, 0.50, 1024), "m": (0.67, 0.75, 768),
                "l": (1.00, 1.00, 512), "x": (1.00, 1.25, 512)},
     "yolo11": {"n": (0.50, 0.25, 1024), "s": (0.50, 0.50, 1024), "m": (0.50, 1.00, 512),
+               "l": (1.00, 1.00, 512), "x": (1.00, 1.50, 512)},
+    "yolo12": {"n": (0.50, 0.25, 1024), "s": (0.50, 0.50, 1024), "m": (0.50, 1.00, 512),
                "l": (1.00, 1.00, 512), "x": (1.00, 1.50, 512)},
     "rtdetr": {"l": (1.00, 1.00, 1024)},
 }
@@ -44,15 +57,16 @@ _SEP = {"rtdetr": "-"}
 VARIANTS = {f + _SEP.get(f, "") + s: v for f, scales in FAMILIES.items()
             for s, v in scales.items()}
 # the backbone layers (yaml indices) whose outputs are the neck's C3 / C4 / C5
-FEATURE_LAYERS = {"yolov8": [4, 6, 9], "yolo11": [4, 6, 10], "rtdetr": [3, 7, 9]}
+FEATURE_LAYERS = {"yolov8": [4, 6, 9], "yolo11": [4, 6, 10], "yolo12": [4, 6, 8],
+                  "rtdetr": [3, 7, 9]}
 
 REG_MAX = 16
 STRIDES = (8, 16, 32)
 
 
 def family(variant: str) -> str:
-    """'yolov8', 'yolo11' or 'rtdetr' of a variant name; ValueError for any
-    other."""
+    """'yolov8', 'yolo11', 'yolo12' or 'rtdetr' of a variant name;
+    ValueError for any other."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}: one of {sorted(VARIANTS)}")
     return variant[:-1].rstrip("-")
@@ -94,7 +108,7 @@ def variant_channels(variant: str) -> Tuple[int, int, int]:
     _, c = _scaled(variant)
     if family(variant) == "rtdetr":
         return rtdetr.variant_channels()
-    if family(variant) == "yolo11":
+    if family(variant) in ("yolo11", "yolo12"):
         return c(512), c(512), c(1024)
     return c(256), c(512), c(1024)
 
@@ -224,19 +238,75 @@ class YOLO11Neck(nn.Module):
         return p3, n4, n5
 
 
+class YOLO12Backbone(nn.Module):
+    """Stem, C3k2 stages at P2 and P3, then A2C2f stages of area attention
+    at P4 (area 4) and P5 (area 1); no SPPF and no C2PSA.  Returns (C3, C4,
+    C5), the outputs of yaml layers 4, 6 and 8.  The C3k2 blocks hold C3k
+    at scales m, l and x; at l and x each A2C2f has the layer-scale residual
+    and an MLP ratio of 1.2 (2.0 and no residual below)."""
+
+    def __init__(self, variant: str = "yolo12n"):
+        super().__init__()
+        d, c = _scaled(variant)
+        big, lx = variant[-1] in "mlx", variant[-1] in "lx"
+        n, r = _n(2, d), 1.2 if lx else 2.0
+        self.ConvBnSiLU_0 = ConvBnSiLU(3, c(64), 3, 2)
+        self.ConvBnSiLU_1 = ConvBnSiLU(c(64), c(128), 3, 2)
+        self.C3k2_0 = C3k2(c(128), c(256), n, big, 0.25)
+        self.ConvBnSiLU_2 = ConvBnSiLU(c(256), c(256), 3, 2)
+        self.C3k2_1 = C3k2(c(256), c(512), n, big, 0.25)
+        self.ConvBnSiLU_3 = ConvBnSiLU(c(512), c(512), 3, 2)
+        self.A2C2f_0 = A2C2f(c(512), c(512), _n(4, d), True, 4, lx, r)
+        self.ConvBnSiLU_4 = ConvBnSiLU(c(512), c(1024), 3, 2)
+        self.A2C2f_1 = A2C2f(c(1024), c(1024), _n(4, d), True, 1, lx, r)
+
+    def forward(self, x, training: bool = False):
+        t = training
+        x = self.C3k2_0(self.ConvBnSiLU_1(self.ConvBnSiLU_0(x, t), t), t)
+        c3 = self.C3k2_1(self.ConvBnSiLU_2(x, t), t)
+        c4 = self.A2C2f_0(self.ConvBnSiLU_3(c3, t), t)
+        c5 = self.A2C2f_1(self.ConvBnSiLU_4(c4, t), t)
+        return c3, c4, c5
+
+
+class YOLO12Neck(nn.Module):
+    """PAN of A2C2f blocks without attention (C3k stages) and a last C3k2:
+    top-down then bottom-up fusion."""
+
+    def __init__(self, variant: str = "yolo12n"):
+        super().__init__()
+        d, c = _scaled(variant)
+        n = _n(2, d)
+        c3, c4, c5 = variant_channels(variant)
+        self.A2C2f_0 = A2C2f(c5 + c4, c(512), n, False)
+        self.A2C2f_1 = A2C2f(c(512) + c3, c(256), n, False)
+        self.ConvBnSiLU_0 = ConvBnSiLU(c(256), c(256), 3, 2)
+        self.A2C2f_2 = A2C2f(c(256) + c(512), c(512), n, False)
+        self.ConvBnSiLU_1 = ConvBnSiLU(c(512), c(512), 3, 2)
+        self.C3k2_0 = C3k2(c(512) + c5, c(1024), n, True)
+
+    def forward(self, c3, c4, c5, training: bool = False):
+        t = training
+        p4 = self.A2C2f_0(torch.cat([upsample2x(c5), c4], dim=1), t)
+        p3 = self.A2C2f_1(torch.cat([upsample2x(p4), c3], dim=1), t)
+        n4 = self.A2C2f_2(torch.cat([self.ConvBnSiLU_0(p3, t), p4], dim=1), t)
+        n5 = self.C3k2_0(torch.cat([self.ConvBnSiLU_1(n4, t), c5], dim=1), t)
+        return p3, n4, n5
+
+
 class DetectHead(nn.Module):
     """Decoupled anchor-free head: per scale a box branch (2x Conv3x3 ->
-    1x1, 4*REG_MAX) and a cls branch (2x Conv3x3 -> 1x1, nc; YOLO11: 2x
-    depthwise 3x3 + 1x1, `SeparableConvBnSiLU`, -> 1x1, nc).  Returns raw
-    maps (B, H, W, 4*REG_MAX + nc) float32.  Its post-process is decode +
-    NMS over a pool of `pre_topk` candidates (`postprocess`)."""
+    1x1, 4*REG_MAX) and a cls branch (2x Conv3x3 -> 1x1, nc; YOLO11 and
+    YOLO12: 2x depthwise 3x3 + 1x1, `SeparableConvBnSiLU`, -> 1x1, nc).
+    Returns raw maps (B, H, W, 4*REG_MAX + nc) float32.  Its post-process is
+    decode + NMS over a pool of `pre_topk` candidates (`postprocess`)."""
 
     nms_pool = True
 
     def __init__(self, num_classes: int = 80, variant: str = "yolov8n"):
         super().__init__()
         chans = head_channels(variant)
-        cls_stage = SeparableConvBnSiLU if family(variant) == "yolo11" else \
+        cls_stage = SeparableConvBnSiLU if family(variant) in ("yolo11", "yolo12") else \
             (lambda c_in, c_out: ConvBnSiLU(c_in, c_out, 3))
         c3ch = chans[0]
         c_box = max(16, c3ch // 4, 4 * REG_MAX)
@@ -308,9 +378,10 @@ def build_network(variant: str, num_classes: int):
     """(backbone, neck, head) of a variant's family."""
     if family(variant) == "rtdetr":
         return rtdetr.build_network(num_classes)
-    if family(variant) == "yolo11":
-        return YOLO11Backbone(variant), YOLO11Neck(variant), DetectHead(num_classes, variant)
-    return YOLOv8Backbone(variant), YOLOv8Neck(variant), DetectHead(num_classes, variant)
+    backbone, neck = {"yolov8": (YOLOv8Backbone, YOLOv8Neck),
+                      "yolo11": (YOLO11Backbone, YOLO11Neck),
+                      "yolo12": (YOLO12Backbone, YOLO12Neck)}[family(variant)]
+    return backbone(variant), neck(variant), DetectHead(num_classes, variant)
 
 
 class YOLOv8(nn.Module):

@@ -467,8 +467,8 @@ class Trainer:
     train loader must have a length) are used as they are, without
     curriculum scoring.  The teacher is required when
     `distillation.enabled` (read from `model.teacher_path`).  `model.name`
-    is a variant of `models/yolo.py:VARIANTS` (yolov8n-x, yolo11n-x); any
-    other name raises ValueError.
+    is a variant of `models/yolo.py:VARIANTS` (yolov8n-x, yolo11n-x,
+    yolo12n-x); any other name raises ValueError.
 
     In a torch.distributed process group of N > 1 ranks (torchrun), every
     rank builds its Trainer with the same config; the mesh takes gcd(

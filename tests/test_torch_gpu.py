@@ -67,7 +67,15 @@ bitwise its path with every ConvBnSiLU on F.batch_norm + F.silu, and one
 call launches the BatchNorm + SiLU kernel once a ConvBnSiLU with SiLU (159)
 and the quantize and phi kernels three times each; each depthwise
 ConvBnSiLU of YOLO11l's head through the kernel is bitwise the same module
-without it."""
+without it.
+
+YOLO12 (`models/layers.py` A2C2f, ABlock, AAttn): the deployed YOLO12-L at
+bs 8 and 640 px, through cell l12-serve-bs256's driver, is within the
+cell's limits at every stage of its check, launches bn_silu 141 times, the
+quantize and phi kernels 3 times each, evaluates 16 area attentions, hands
+its taps on in bfloat16, and runs its attention cores on a fused SDPA
+backend; its 307-wide ConvBnSiLU (the kernel's element path) is bitwise the
+same module without the kernel."""
 
 import numpy as np
 import pytest
@@ -1232,3 +1240,93 @@ def test_train_step_counts_six_frac_quant_launches(cuda, tmp_path):
     backward = [r for r in profiling.span_records() if r["name"] == "train.backward"]
     assert len(backward) == 1 and backward[0]["counts"].get("frac_quant") == 3
     assert bool(torch.isfinite(metrics["loss_total"]))
+
+
+# ---------------------------------------------------------------------------
+# YOLO12-L on the card (models/layers.py A2C2f, ABlock, AAttn, AreaSDPA)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_yolo12l_deployed_call_against_the_reference_and_its_launches(cuda):
+    """The bf16 deployed call of cell l12-serve-bs256 at its shapes (640 px,
+    every width; 8 images a call), through the cell's own driver: each
+    stage of its check within the cell's limits (taps, complexity and bit
+    maps, the last P4 attention, raw maps, the detections exactly); a call
+    launches bn_silu 141 times, the quantize and phi kernels 3 times each,
+    and evaluates 16 area attentions; the layer-scale residual hands the
+    taps on in the network's dtype; the attention cores run a fused SDPA
+    backend (no softmax kernel of the math path), whose kernel names the
+    test prints."""
+    from mcaq_yolo_tpu_torch.core import morphology_lanes as ml
+    from mcaq_yolo_tpu_torch.ops import bn_silu as bs
+    from mcaq_yolo_tpu_torch.utils import profiling
+    from perfbench import run, trace
+    from perfbench.drivers import serve_batch_y12 as d
+
+    run.cache_env()
+    c = run.cell("l12-serve-bs256")
+    c["traffic"].update(batch=8, pool_batches=2)
+    drv = d.Driver(c["config"], c["traffic"], 20261019, cuda, lambda o: None)
+    drv.setup()
+    drv.window(1.0)
+    x = drv.batches[0]
+    model = drv.pred.model
+    feats = []
+    hook = model.backbone.register_forward_hook(lambda m, args, out: feats.extend(out))
+    before = (bs.launches(), sq.spatial_quantize.launches, ml.phi_tiles.launches,
+              profiling.counters().get("area_attention", 0))
+    drv.entry(x)
+    torch.cuda.synchronize()
+    after = (bs.launches(), sq.spatial_quantize.launches, ml.phi_tiles.launches,
+             profiling.counters().get("area_attention", 0))
+    hook.remove()
+    assert [a - b for a, b in zip(after, before)] == [141, 3, 3, 16]
+    assert [f.dtype for f in feats] == [torch.bfloat16] * 3
+    assert model.backbone.A2C2f_0.gamma.dtype == torch.float32
+
+    with trace.Ranges({"area_sdpa": d.attention_cores(model)[0]}):
+        tr = trace.profile(lambda: drv.entry(x))
+    names = sorted({k.name for k in tr.kernels if "area_sdpa" in k.ranges})
+    print("SDPA kernels:", names)
+    assert names and any(s in n.lower() for n in names for s in ("flash", "fmha", "efficient"))
+    assert not any("softmax" in n.lower() for n in names)
+
+    drv.release()
+    numbers = drv.check()
+    over = {k: numbers[k] for k, lim in c["limits"].items()
+            if not k.startswith("_") and numbers[k] > lim}
+    assert not over, numbers
+    assert int(drv.picked["out"][3].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [40, 20])
+def test_307_wide_conv_bn_silu_through_the_kernel_is_bitwise(cuda, monkeypatch, H):
+    """YOLO12-L's ABlock MLP at bs 8: the 1x1 ConvBnSiLU from 256 to 307
+    channels (a width the kernel's 16-byte groups do not fit: its element
+    path), bf16 on channels-last maps, bitwise the same module without the
+    kernel, in one launch."""
+    from mcaq_yolo_tpu_torch.models.layers import ConvBnSiLU
+    from mcaq_yolo_tpu_torch.ops import bn_silu as bs
+
+    g = torch.Generator().manual_seed(H)
+    m = ConvBnSiLU(256, 307, 1)
+    with torch.no_grad():
+        m.Conv_0.weight.normal_(0, 0.1, generator=g)
+        bn = m.BatchNorm_0
+        bn.weight.uniform_(0.5, 1.5, generator=g), bn.bias.normal_(0, 1, generator=g)
+        bn.running_mean.normal_(0, 1, generator=g), bn.running_var.uniform_(0.05, 2, generator=g)
+    m.Conv_0.to(dtype=torch.bfloat16)
+    m.to(device=cuda, memory_format=torch.channels_last)
+    x = (torch.randn(8, 256, H, H, generator=g) * 3).to(device=cuda, dtype=torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        before = bs.launches()
+        out = m(x)
+        torch.cuda.synchronize()
+        assert bs.launches() == before + 1
+        monkeypatch.setattr(bs, "takes", lambda x, bn: False)
+        plain = m(x)
+    assert out.shape[1] == 307 and out.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(out.view(torch.int16), plain.view(torch.int16))
